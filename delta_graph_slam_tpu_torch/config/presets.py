@@ -1,12 +1,12 @@
 """Pipeline presets mirroring the reference launch files.
 
 The ``delta`` preset carries the launch values of delta_graph_slam.launch
-(KITTI + buildings) for the parts the port has; the hdl presets raise
-until the SE3 path is ported.
+(KITTI + buildings); the hdl presets raise until the SE3 path is ported.
 """
 
 import dataclasses
 
+from ..lines.align import LineScanmatcherConfig
 from ..models.delta_backend import DeltaBackendConfig
 from ..models.prefiltering import PrefilteringConfig
 from ..models.scan_matching_odometry import OdometryConfig
@@ -49,7 +49,26 @@ def _delta_preset() -> PipelineConfig:
         delta=DeltaBackendConfig(             # launch :74-170
             max_keyframes_per_update=10, keyframe_delta_trans=2.0,
             keyframe_delta_angle=2.0, fix_first_node=True,
-            graph_update_interval=3.0,
+            g2o_solver_num_iterations=512, graph_update_interval=3.0,
+            distance_thresh=15.0, accum_distance_thresh=25.0,
+            min_edge_interval=15.0, fitness_score_thresh=2.5,
+            gps_edge_stddev_xy=1500.0,
+            loop_closure_edge_robust_kernel="Huber",
+            loop_closure_edge_robust_kernel_size=1.0,
+            nearby_buildings_radius=35.0, buffer_buildings_radius=120.0,
+            registration=reg_front,
+            scanmatcher=LineScanmatcherConfig(   # launch :149-170
+                min_cluster_size=40, max_cluster_size=25000,
+                cluster_tolerance=1.5, sac_distance_threshold=0.1,
+                max_iterations=100, merror_threshold=0.1,
+                line_length_threshold=1.5,
+                g_avg_distance_weight=1.5, g_coverage_weight=0.5,
+                g_transform_weight=0.5, g_max_score_distance=3.5,
+                g_max_score_translation=3.5,
+                l_avg_distance_weight=1.5, l_coverage_weight=1.5,
+                l_transform_weight=0.1, l_max_score_distance=1.0,
+                l_max_score_translation=3.5,
+            ),
             inf=InformationMatrixCalculator(     # launch :116-141
                 use_const_inf_matrix=False, const_stddev_x=0.5,
                 const_stddev_q=0.1, var_gain_a=20.0, min_stddev_x=0.1,

@@ -1,7 +1,7 @@
 """Numpy hand-over between the JAX reference and this port.
 
-The state that crosses between the packages is clouds, masks, 4x4 poses and
-configuration values, all as numpy or plain Python values.
+The state that crosses between the packages is clouds, masks, 4x4 poses,
+configuration values and pose graphs, all as numpy or plain Python values.
 """
 
 import dataclasses
@@ -10,6 +10,8 @@ import numpy as np
 import torch
 
 from .config.presets import PipelineConfig
+from .graph.robust import ROBUST_KERNELS
+from .graph.se2_graph import SE2GraphBuilder
 from .ops.cloud import MaskedCloud, make_cloud
 
 
@@ -34,8 +36,9 @@ def config_from_reference_fields(fields: dict, cls=PipelineConfig):
     the reference's counterpart.
 
     Every field of ``cls`` must be present; nested configs are built
-    recursively. Reference fields the port has no counterpart for yet (the
-    backend's buildings, loops and solver settings) are not carried.
+    recursively, so the backend's solver, registration, line-matcher and
+    information-matrix settings carry across. Reference fields the port has
+    no counterpart for (the hdl backend and floor detection) are ignored.
     """
     kw = {}
     for f in dataclasses.fields(cls):
@@ -46,3 +49,19 @@ def config_from_reference_fields(fields: dict, cls=PipelineConfig):
             value = config_from_reference_fields(value, f.type)
         kw[f.name] = value
     return cls(**kw)
+
+
+def builder_from_reference(ref, device="cpu") -> SE2GraphBuilder:
+    """The port's SE2GraphBuilder holding the same graph as a reference
+    builder: vertices, fixed flags and edge records (ids included), with
+    arrays as numpy in the reference builder's dtype."""
+    b = SE2GraphBuilder(dtype=ref.dtype, device=device)
+    for pose, fixed in zip(ref.poses, ref.fixed):
+        b.add_vertex(np.asarray(pose), fixed=fixed)
+    for e in ref.edges:
+        b._add_edge(e["type"], e["i"], e["j"], np.asarray(e["meas"]),
+                    np.asarray(e["info"]), e["level"], ROBUST_KERNELS[e["kernel"]],
+                    e["delta"])
+        b.edges[-1]["id"] = e["id"]
+    b._next_edge_id = ref._next_edge_id
+    return b

@@ -1,4 +1,4 @@
-"""End-to-end pipeline runner (the nodelet-manager equivalent), first slice.
+"""End-to-end pipeline runner (the nodelet-manager equivalent).
 
 Wires PrefilteringStage -> ScanMatchingOdometry -> DeltaBackend as
 delta_graph_slam.launch wires the nodelets, on one explicit device, with
@@ -21,19 +21,25 @@ from ..utils.profiling import StageTimer
 
 
 class Pipeline:
-    def __init__(self, cfg: PipelineConfig, base_T: Optional[np.ndarray] = None,
-                 device="cpu"):
+    def __init__(self, cfg: PipelineConfig, building_provider=None,
+                 base_T: Optional[np.ndarray] = None, device="cpu"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.prefiltering = PrefilteringStage(cfg.prefiltering, self.device)
         self.odometry = ScanMatchingOdometry(cfg.odometry, self.device)
-        self.backend = DeltaBackend(cfg.delta, self.device)
+        self.backend = DeltaBackend(cfg.delta, building_provider, self.device)
         self._interval = cfg.delta.graph_update_interval
         self.base_T = np.eye(4) if base_T is None else np.asarray(base_T)
         # stage clocks wait for the card, so each stage is charged its own work
         self.timer = StageTimer(
             sync=torch.cuda.synchronize if self.device.type == "cuda" else None)
         self._last_opt_stamp = None
+
+    def on_gps(self, stamp, lat, lon, alt=0.0):
+        self.backend.gps_callback(stamp, lat, lon, alt)
+
+    def on_nmea(self, stamp, sentence):
+        self.backend.nmea_callback(stamp, sentence)
 
     def on_points(self, stamp, points, gt_pose=None):
         """Full per-scan path: prefilter -> odometry -> backend enqueue."""
@@ -59,11 +65,18 @@ class Pipeline:
             return self.backend.optimization_step()
 
     def finish(self):
-        """Flush the keyframe queue into the graph."""
+        """A final optimization: at least one update step and up to ten,
+        until one changes nothing and the keyframe queue is empty."""
         stats = {}
-        while self.backend.keyframe_queue:
-            stats = self.optimize()
+        for _ in range(10):
+            s = self.optimize()
+            if not s and not self.backend.keyframe_queue:
+                break
+            stats = s or stats
         return stats
+
+    def evaluate(self):
+        return self.backend.compute_ate_rpe()
 
     def timing_summary(self):
         out = dict(self.timer.summary())

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from delta_graph_slam_tpu.buildings import StaticProvider
+from delta_graph_slam_tpu_torch.buildings import StaticProvider as PStaticProvider
 from delta_graph_slam_tpu.config import get_preset as r_get_preset
 from delta_graph_slam_tpu.io import kitti as r_kitti
 from delta_graph_slam_tpu.io import lidar_sim as r_lidar_sim
@@ -73,13 +74,15 @@ def runs():
         return out
 
     ref.odometry._status_step = counting_step
-    port = PPipeline(_small(p_get_preset), base_T=np.eye(4), device="cpu")
+    port = PPipeline(_small(p_get_preset),
+                     building_provider=PStaticProvider("<osm>\n</osm>"),
+                     base_T=np.eye(4), device="cpu")
     ref_frames, port_frames = [], []
-    for k, fr in enumerate(frames):
-        if k == 0:
-            # the reference backend drops keyframes until its building
-            # manager exists; the port has none yet (stated divergence)
-            ref.on_gps(fr.stamp, *fr.gps)
+    for fr in frames:
+        # both backends drop keyframes until the first GPS fix has made
+        # their building manager
+        ref.on_gps(fr.stamp, *fr.gps)
+        port.on_gps(fr.stamp, *fr.gps)
         ref_frames.append(ref.on_points(fr.stamp, fr.points))
         port_frames.append(port.on_points(fr.stamp, fr.points))
     # interval 2.0 s > 1.1 s of stamps: no update step has fired yet
@@ -134,19 +137,21 @@ def test_pipeline_finish_and_timing():
     cfg = _small(p_get_preset)
     cfg = dataclasses.replace(cfg, delta=dataclasses.replace(
         cfg.delta, keyframe_delta_trans=0.5, max_keyframes_per_update=1))
-    pipe = PPipeline(cfg)
+    pipe = PPipeline(cfg, building_provider=PStaticProvider("<osm></osm>"))
     for fr in frames:
+        pipe.on_gps(fr.stamp, *fr.gps)
         pipe.on_points(fr.stamp, fr.points)
     assert len(pipe.backend.keyframe_queue) == 3
     stats = pipe.finish()                        # three flushes of one
-    assert stats == {"keyframes": 3, "edges": 3}
+    assert len(pipe.backend.keyframes) == 3
+    assert stats["loops"] == 0 and np.isfinite(stats["chi2_level0"])
     assert not pipe.backend.keyframe_queue
     edges = pipe.backend.graph.edges
     assert [(e["i"], e["j"]) for e in edges] == [(1, 0), (2, 0), (3, 2)]
     assert all(np.isfinite(e["info"]).all() for e in edges)
     t = pipe.timing_summary()
     for stage in ("prefiltering", "odometry", "backend_enqueue",
-                  "backend.information_matrix"):
+                  "backend.information_matrix", "backend.optimize_level0"):
         assert t[stage]["count"] > 0, stage
 
 
