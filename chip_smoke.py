@@ -26,7 +26,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      delta preset without buildings (GPS every frame, loop closure on):
      needs a loop edge validated through the nn1 kernel, finite chi2 on
      every cycle and ATE <= 1.0 m; the same drive with loop closure off
-     is printed beside it.
+     is printed beside it;
+  8. buildings: the delta preset with OSM buildings on (RANSAC lines,
+     align_global per keyframe, keyframe<->building edges, global priors,
+     the de-overlap loop, save_map), 10 warm-up frames then 240 timed
+     raycast frames of bench.py's city drive (GPS 0.5 m noise, 0.15 m/frame
+     walk), then finish(); needs >= 3 building vertices, >= 1
+     keyframe<->building edge, >= 1 global prior, align_global on every
+     keyframe with buildings in range, finite chi2 on every cycle, <= 15
+     de-overlap rounds a cycle, ATE <= 1.0 m and three non-empty PCD
+     files; the same frames without buildings are printed beside it.
 The line before the last is the kernel report, the last line the result.
 With --out, a JSON file with every measurement goes into DIR.
 """
@@ -47,6 +56,8 @@ REPLACES = "delta_graph_slam_tpu/ops/pallas_nn.py:30"
 EMPTY_OSM = "<osm></osm>"
 GRAPH_NODES = 4096
 LAP_FRAMES = 120
+CITY_WARMUP = 10
+CITY_FRAMES = 240
 
 
 def fail(msg):
@@ -607,6 +618,140 @@ def run_backend(report, frames):
     return launches
 
 
+# ---------------------------------------------------------- buildings drive
+
+def city_drive(world, frames, gts, buildings=True):
+    """bench.py:127-187 without its compile pass: the delta preset at full
+    capacity, CITY_WARMUP frames and two update steps, the timers reset,
+    then the timed frames and finish(). Returns (pipeline, non-empty
+    per-cycle stats, wall seconds of the timed frames)."""
+    import torch
+
+    from delta_graph_slam_tpu_torch.buildings import StaticProvider
+    from delta_graph_slam_tpu_torch.config import get_preset
+    from delta_graph_slam_tpu_torch.pipeline.runner import Pipeline
+
+    cfg = get_preset("delta")
+    if not buildings:     # the no_buildings variant of bench.py:190-218
+        cfg = dataclasses.replace(cfg, delta=dataclasses.replace(
+            cfg.delta, enable_buildings=False))
+    pipe = Pipeline(cfg, building_provider=StaticProvider(
+        world.osm_xml() if buildings else EMPTY_OSM), device="cuda")
+    cycles, step = [], pipe.backend.optimization_step
+
+    def counted_step():
+        out = step()
+        cycles.append(out)
+        return out
+
+    pipe.backend.optimization_step = counted_step
+    drive(pipe, frames[:CITY_WARMUP], gts[:CITY_WARMUP])
+    pipe.backend.optimization_step()
+    pipe.backend.optimization_step()
+    pipe.timer.reset()
+    pipe.backend.timer.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for fr, gt in zip(frames[CITY_WARMUP:], gts[CITY_WARMUP:]):
+        pipe.on_gps(fr.stamp, *fr.gps)
+        pipe.on_points(fr.stamp, fr.points, gt_pose=gt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pipe.finish()
+    return pipe, [c for c in cycles if c], wall
+
+
+def building_counts(backend):
+    """Buildings, building vertices, level-1 keyframe<->building edges and
+    global-prior keyframes of a backend's graph."""
+    mgr = backend.buildings_manager
+    bnodes = {b.node_id for b in mgr.get_building_nodes()}
+    kf = {k.node_id for k in backend.keyframes}
+    edges = backend.graph.edges
+    kb = sum(1 for e in edges if e["type"] == "se2" and e["level"] == 1
+             and {e["i"], e["j"]} & kf and {e["i"], e["j"]} & bnodes)
+    priors = sum(1 for e in edges if e["type"] == "xy" and e["level"] == 0)
+    return len(mgr.buildings), len(bnodes), kb, priors
+
+
+def run_buildings(report):
+    import tempfile
+
+    from delta_graph_slam_tpu_torch.io.lidar_sim import raycast_city_sequence
+    from delta_graph_slam_tpu_torch.io.pcd import load_pcd
+    from delta_graph_slam_tpu_torch.ops import nn_kernel
+
+    t0 = time.perf_counter()
+    world, frames = raycast_city_sequence(n_frames=CITY_WARMUP + CITY_FRAMES, speed=3.0,
+                                          gps_noise_std=0.5, gps_walk_std=0.15)
+    gts = rel_gt(frames)          # re-anchored as bench.py:80-95
+    print(f"generated {len(frames)} frames in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    nn_kernel.launches = 0
+    pipe, cycles, wall = city_drive(world, frames, gts)
+    launches = nn_kernel.launches
+    be = pipe.backend
+    m = pipe.evaluate()
+    n_b, n_bv, n_kb, n_priors = building_counts(be)
+    t = pipe.timing_summary()
+
+    def ms(k):
+        return t[k]["mean_ms"] if k in t else float("nan")
+
+    stages = ["get_buildings", "align_global", "building_nodes", "align_local",
+              "overlap_test", "align_overlapped", "optimize_level0", "optimize_level1",
+              "optimize_level2"]
+    per_call = {k: ms("backend." + k) for k in stages}
+    per_call["optimization_step"] = ms("optimization_step")
+    rounds = [c["deoverlap_rounds"] for c in cycles]
+    chi2 = [(c["chi2_level0"], c["chi2_level1"]) for c in cycles]
+    in_range = [k for k in be.keyframes if k.near_buildings]
+    aligned = [k for k in in_range if k.global_alignment is not None]
+    print(f"{CITY_FRAMES} frames in {wall:.3f} s: {CITY_FRAMES / wall:.3f} frames/s; "
+          f"keyframes {len(be.keyframes)} ({len(in_range)} with buildings in range, "
+          f"{len(aligned)} globally aligned), cycles {len(cycles)}", flush=True)
+    print("ms per call: " + ", ".join(f"{k} {v:.3f}" for k, v in per_call.items()),
+          flush=True)
+    print(f"buildings {n_b}, building vertices {n_bv}, keyframe<->building edges "
+          f"{n_kb}, global priors {n_priors}, nn1 launches {launches}", flush=True)
+    print(f"de-overlap rounds per cycle {rounds}", flush=True)
+
+    with tempfile.TemporaryDirectory() as d:
+        saved = pipe.save_map(d)
+        pcd = {n: len(load_pcd(Path(d) / n)) if (Path(d) / n).exists() else 0
+               for n in ("map.pcd", "b_map.pcd", "aligned_b_map.pcd")}
+    print(f"save_map: {saved}, points {pcd}", flush=True)
+
+    pipe_n, _, wall_n = city_drive(world, frames, gts, buildings=False)
+    m_n = pipe_n.evaluate()
+    print("ATE {ATE_mean:.4f} m (std {ATE_std:.4f}), t-RPE {t_RPE_mean:.4f} m, "
+          "r-RPE {r_RPE_mean:.5f} rad".format(**m)
+          + f"; no_buildings ATE {m_n['ATE_mean']:.4f} m "
+          f"({CITY_FRAMES / wall_n:.3f} frames/s)", flush=True)
+    report["buildings"] = {
+        "frames": CITY_FRAMES, "warmup_frames": CITY_WARMUP, "wall_s": wall,
+        "frames_per_s": CITY_FRAMES / wall, "keyframes": len(be.keyframes),
+        "keyframes_in_range": len(in_range), "keyframes_aligned": len(aligned),
+        "buildings": n_b, "building_vertices": n_bv, "kf_building_edges": n_kb,
+        "global_priors": n_priors, "deoverlap_rounds": rounds, "chi2": chi2,
+        "nn1_launches": launches, "ms_per_call": per_call, "timing": t,
+        "metrics": m, "pcd_points": pcd, "no_buildings_metrics": m_n,
+        "no_buildings_frames_per_s": CITY_FRAMES / wall_n,
+    }
+    check(n_bv >= 3, f"{n_bv} building vertices, need 3")
+    check(n_kb >= 1, "no keyframe<->building edge")
+    check(n_priors >= 1, "no global-alignment prior")
+    check(in_range and len(aligned) == len(in_range),
+          f"align_global ran on {len(aligned)} of {len(in_range)} keyframes with "
+          "buildings in range")
+    check(cycles and all(np.isfinite(c).all() for c in chi2),
+          f"chi2 not finite on every cycle: {chi2}")
+    check(max(rounds) <= 15, f"de-overlap rounds {rounds} above 15")
+    check(m["ATE_mean"] <= 1.0, f"ATE {m['ATE_mean']} m > 1.0 m")
+    check(saved and all(n > 0 for n in pcd.values()), f"save_map wrote {pcd}")
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="directory for a JSON report")
@@ -666,6 +811,10 @@ def main():
     print(f"generated {LAP_FRAMES} frames in {time.perf_counter() - t:.1f} s",
           flush=True)
     launches += run_backend(report, lap)
+    print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
+
+    t = phase(f"buildings: {CITY_FRAMES}-frame raycast city drive, delta preset")
+    launches += run_buildings(report)
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
     if args.out:

@@ -1,11 +1,13 @@
-"""OpenStreetMap building footprints: the host-side manager.
+"""OpenStreetMap building-footprint constraint system.
 
-The download, parse and range query of BuildingTools (building_tools.cpp).
-The Building entity and its graph vertex come with the line-feature
-matcher in slice 3 of the port; until then a world with buildings in
-range raises instead of being skipped.
+Rebuild of BuildingTools/Building (building_tools.cpp, building.cpp): a
+host-side Overpass client (with offline XML providers for deterministic
+replay) feeding outline lines and clouds on the backend's device, plus the
+Building entity whose lines/cloud re-pose by the current graph estimate
+rotated about the building center.
 """
 
+from .building import Building, building_map_transform
 from .manager import (
     BuildingManager,
     OverpassProvider,
@@ -15,6 +17,7 @@ from .manager import (
 )
 
 __all__ = [
+    "Building", "building_map_transform",
     "BuildingManager", "OverpassProvider", "FileProvider", "StaticProvider",
     "parse_osm_xml",
 ]

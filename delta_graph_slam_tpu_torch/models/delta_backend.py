@@ -1,21 +1,27 @@
-"""The delta graph-SLAM backend: SE2 pose graph, GPS and loop closure.
+"""The delta graph-SLAM backend (SE2 pose graph + buildings).
 
 Rebuild of DeltaGraphSlamNodelet (delta_graph_slam_nodelet.cpp) on the
-port's modules: keyframe admission, odometry edges whose information comes
-from the scan-match fitness, GPS priors, loop closure, and the two-level
-robust LM through the direct chain solver (graph/solver.py ->
-graph/chain_lm.py -> graph/chain_solve.py). ``optimization_step()`` is the
-3 s wall-timer body (:793-927). The reference's quirks are kept: the
-reversed odometry-edge measurement (:570-571), GPS-prior information
-I / stddev (not / stddev^2), non-short-circuit update-source evaluation.
+port's modules: keyframe admission, OSM building constraints through the
+line-feature scan matcher, odometry edges whose information comes from the
+scan-match fitness, GPS priors, loop closure, the three-level robust LM
+through the direct chain solver (graph/solver.py -> graph/chain_lm.py ->
+graph/chain_solve.py), building de-overlap and map export.
+``optimization_step()`` is the 3 s wall-timer body (:793-927). The
+reference's quirks are kept: the reversed odometry-edge measurement
+(:570-571), GPS-prior information I / stddev (not / stddev^2),
+non-short-circuit update-source evaluation (:811), the coverage (not
+percentage) gate at 35 for the global-alignment priors (:714).
 
-Not in this slice:
-- OSM building constraints (align_global, building nodes, de-overlap) need
-  the line-feature matcher of slice 3. A building in range raises; with
-  ``enable_buildings`` off, or in a world without buildings, the backend
-  follows the reference exactly.
-- The threaded runner's four locks, the IMU initial orientation,
-  save_map and save_state/load_state.
+Host reads of device results: one per align_global (transform and
+fitness), one per cycle for the batched align_local results, and per
+de-overlap round one for the overlap flags and one for the alignments.
+Batched pair and building counts are not padded: the JAX package pads them
+to powers of two so that XLA reuses compiled programs, and padded slots
+change no result.
+
+Not in this slice: the threaded runner and its four locks (this backend is
+single-threaded), the IMU initial orientation, save_state/load_state and
+create_marker_array.
 
 One divergence: the reference downloads OSM data from the public Overpass
 server when no building provider is given. This backend needs the provider
@@ -25,24 +31,84 @@ nothing reaches the network unasked.
 """
 
 import dataclasses
+import os
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..buildings.manager import BuildingManager
-from ..geom.host import se2_compose_np, se2_inverse_np, transform_3d_to_2d_np
+from ..geom.host import (
+    se2_compose_np, se2_inverse_np, transform_2d_to_3d_np, transform_3d_to_2d_np,
+)
 from ..geom.projection import gps_from_mercator, mercator_from_gps, mercator_scale
 from ..graph import SE2GraphBuilder, SolverConfig, optimize_se2
 from ..io.nmea import NmeaSentenceParser
-from ..lines.align import LineScanmatcherConfig
+from ..io.pcd import save_pcd
+from ..lines.align import LineBasedScanmatcher, LineScanmatcherConfig
+from ..lines.features import make_lines, rot2, transform_lines
+from ..lines.overlap import are_buildings_overlapped
+from ..lines.scoring import FitnessScore
+from ..ops.ransac import LineSegments
 from ..pipeline.information_matrix import InformationMatrixCalculator
 from ..pipeline.keyframe import KeyFrame, KeyFrameSnapshot
 from ..pipeline.keyframe_updater import KeyframeUpdater
 from ..pipeline.loop_detector import LoopDetector
+from ..pipeline.map_cloud_generator import MapCloudGenerator
 from ..register.config import RegistrationConfig
 from ..register.engine import make_registration
 from ..utils.device import resolve_device
 from ..utils.profiling import StageTimer
+
+
+def _pair_map_lines(ba, bb, bm, bpose, est, ii, jj):
+    """Map-frame building outlines for P (i, j) pairs.
+
+    ba/bb (B, L, 2) raw download-frame endpoints, bm (B, L) masks,
+    bpose (B, 3) fixed OSM poses, est (B, 3) current graph estimates,
+    ii/jj (P,) pair indices. Re-poses every building by
+    building_map_transform (rotation about the building center,
+    building.cpp:7-13) and gathers the pair tensors."""
+    R = rot2(est[:, 2] - bpose[:, 2])
+    t = est[:, :2] - torch.einsum("bij,bj->bi", R, bpose[:, :2])
+    ta = torch.einsum("bij,blj->bli", R, ba) + t[:, None, :]
+    tb = torch.einsum("bij,blj->bli", R, bb) + t[:, None, :]
+    return (ta[ii], tb[ii], bm[ii], est[ii][:, :2],
+            ta[jj], tb[jj], bm[jj], est[jj][:, :2])
+
+
+def _line_stack_of(a, b, mask):
+    """Batched LineSegments from endpoint tensors (stats zero: building
+    outlines carry no RANSAC fit stats)."""
+    z = torch.zeros(mask.shape, dtype=a.dtype, device=a.device)
+    return LineSegments(a=a, b=b, mean_error=z, std_sigma=z, max_error=z,
+                        min_error=z, mask=mask)
+
+
+def _host_alignment(result):
+    """A global alignment with its transform (4,4) and fitness moved to the
+    host in one read; the line sets stay on the device."""
+    flat = torch.cat([result.transformation.reshape(-1),
+                      torch.stack(list(result.fitness))]).cpu().numpy()
+    return result._replace(transformation=flat[:16].reshape(4, 4),
+                           fitness=FitnessScore(*(float(x) for x in flat[16:])))
+
+
+def _concat_lines(buildings, capacity):
+    """The buildings' raw outline segments as one masked batch on the host,
+    from the corner polygons (b.lines was built from exactly
+    corners[:-1] -> corners[1:], buildings/manager.py _new_building)."""
+    a_all, b_all = [], []
+    for bd in buildings:
+        pts = np.asarray(bd.corners, np.float32)
+        if len(pts) >= 2:
+            a_all.append(pts[:-1])
+            b_all.append(pts[1:])
+    if not a_all:
+        return make_lines(np.zeros((0, 2)), np.zeros((0, 2)), capacity=capacity)
+    a = np.concatenate(a_all)[:capacity]
+    b = np.concatenate(b_all)[:capacity]
+    return make_lines(a, b, capacity=capacity)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,7 +160,6 @@ class DeltaBackendConfig:
             maximum_iterations=64, max_correspondence_distance=2.0,
         )
     )
-    # the line matcher's settings, read from slice 3 on
     scanmatcher: LineScanmatcherConfig = dataclasses.field(
         default_factory=lambda: LineScanmatcherConfig(
             min_cluster_size=40, cluster_tolerance=1.5,
@@ -122,11 +187,6 @@ class DeltaBackendConfig:
     )
 
 
-def _slice3(what):
-    return NotImplementedError(
-        f"{what} needs the line-feature matcher, slice 3 of the port")
-
-
 class DeltaBackend:
     def __init__(self, cfg: DeltaBackendConfig = DeltaBackendConfig(),
                  building_provider=None, device="cpu"):
@@ -145,9 +205,13 @@ class DeltaBackend:
             fitness_score_max_range=cfg.fitness_score_max_range,
             fitness_score_thresh=cfg.fitness_score_thresh,
         )
+        self.scanmatcher = LineBasedScanmatcher(cfg.scanmatcher, self.device)
         self.inf_calculator = cfg.inf
+        self.map_generator = MapCloudGenerator()
         self.nmea_parser = NmeaSentenceParser()
-        self.timer = StageTimer()
+        # stage clocks wait for the card, so each stage is charged its own work
+        self.timer = StageTimer(
+            sync=torch.cuda.synchronize if self.device.type == "cuda" else None)
 
         self.keyframes: List[KeyFrame] = []
         self.new_keyframes: List[KeyFrame] = []
@@ -163,9 +227,11 @@ class DeltaBackend:
         self.scale: Optional[float] = None
         self.buildings_manager: Optional[BuildingManager] = None
         self._building_provider = building_provider
+        self._bstack = None   # (building count, device outline stack)
 
         self.anchor_node: Optional[int] = None
         self.anchor_edge_id: Optional[int] = None
+        self.overlap_edge_ids: List[int] = []
         self.read_until_stamp = 0.0
 
     @property
@@ -173,6 +239,17 @@ class DeltaBackend:
         return np.stack(self.graph.poses) if self.graph.poses else np.zeros((0, 3))
 
     # ---------------------------------------------------------- gps path
+    # graph mutations on behalf of the building manager: a new building's
+    # vertex and its weak level-1 priors (building_tools.cpp:137-148)
+    def _graph_add_vertex(self, pose):
+        return self.graph.add_vertex(pose)
+
+    def _graph_add_prior_xy(self, v, xy, w):
+        return self.graph.add_prior_xy(v, xy, np.eye(2) * w, level=1)
+
+    def _graph_add_prior_yaw(self, v, yaw, w):
+        return self.graph.add_prior_yaw(v, yaw, w, level=1)
+
     def gps_callback(self, stamp, lat, lon, alt=0.0):
         stamp = stamp + self.cfg.gps_time_offset
         if self.origin is None:
@@ -186,8 +263,12 @@ class DeltaBackend:
                 scale=self.scale))
             mgr = BuildingManager(
                 self._building_provider, self.origin, self.scale,
+                graph_add_vertex=self._graph_add_vertex,
+                graph_add_prior_xy=self._graph_add_prior_xy,
+                graph_add_prior_yaw=self._graph_add_prior_yaw,
                 radius=self.cfg.nearby_buildings_radius,
                 buffer_radius=self.cfg.buffer_buildings_radius,
+                device=self.device,
             )
             self.gps_queue.append((stamp, lat, lon))
             mgr.get_buildings(lat, lon)
@@ -202,6 +283,10 @@ class DeltaBackend:
 
     def navsat_callback(self, stamp, lat, lon, alt):
         self.gps_callback(stamp, lat, lon, alt)
+
+    def _update_anchor(self, pose):
+        if self.anchor_node is not None and self.keyframes:
+            self.graph.set_pose(self.anchor_node, pose)
 
     # ------------------------------------------------------ keyframe path
     def cloud_callback(self, stamp, odom_4x4, cloud, flat_cloud, gt_pose=None):
@@ -219,14 +304,36 @@ class DeltaBackend:
                 self.read_until_stamp = stamp + 3.0
             return
 
-        map_pose = se2_compose_np(self.trans_odom2map, odom2d)
+        odom2map = self.trans_odom2map.copy()
+        map_pose = se2_compose_np(odom2map, odom2d)
         # reverse-Mercator of the current estimated position (:243-251)
         xyz = np.array([map_pose[0], map_pose[1], 0.0]) + self.origin
         gps = gps_from_mercator(xyz, scale=self.scale)
         with self.timer.stage("get_buildings"):
             buildings = mgr.get_buildings(gps[0], gps[1])
+
+        estimated_odom = map_pose.copy()
+        result = None
         if buildings:
-            raise _slice3("align_global against buildings in range")
+            with self.timer.stage("align_global"):
+                # building lines into the sensor frame (:274-276), on the
+                # host: the matcher merges them there before the upload
+                blines = _concat_lines(buildings,
+                                       capacity=self.cfg.scanmatcher.max_target_lines)
+                inv3d = transform_2d_to_3d_np(se2_inverse_np(map_pose))
+                result = _host_alignment(self.scanmatcher.align_global(
+                    flat_cloud, transform_lines(blines, inv3d),
+                    constrain_angle=add_keyframe, max_range=3.5,
+                ))
+            odom_trans2d = transform_3d_to_2d_np(result.transformation)
+            estimated_odom = se2_compose_np(map_pose, odom_trans2d)
+
+            # initial-yaw bootstrap between 1st and 2nd keyframe (:295-314)
+            if self.adjust_initial_orientation and not add_keyframe:
+                trans = se2_compose_np(odom2map, odom_trans2d)
+                trans[:2] = 0.0
+                self._update_anchor(trans)
+                self.trans_odom2map = trans
 
         if add_keyframe:
             accum_d = self.keyframe_updater.get_accum_distance()
@@ -235,7 +342,8 @@ class DeltaBackend:
             self.keyframe_queue.append(KeyFrame(
                 stamp=stamp, odom=np.asarray(odom_4x4), odom2d=odom2d,
                 accum_distance=accum_d, cloud=cloud, flat_cloud=flat_cloud,
-                estimated_odom=map_pose.copy(), near_buildings=buildings,
+                estimated_odom=estimated_odom, global_alignment=result,
+                near_buildings=buildings,
                 gt_pose=None if gt_pose is None else np.asarray(gt_pose),
             ))
 
@@ -254,8 +362,9 @@ class DeltaBackend:
             self.new_keyframes.append(kf)
             kf.node_id = self.graph.add_vertex(se2_compose_np(odom2map, kf.odom2d))
             if not self.keyframes and len(self.new_keyframes) == 1:
-                # the anchor is vertex 1: the first odometry edge (2, 0)
-                # is then off-chain, as in the reference
+                # the anchor follows the first keyframe's vertex: the first
+                # odometry edge then skips it and is off-chain, as in the
+                # reference
                 self.anchor_node = self.graph.add_vertex(
                     odom2map, fixed=self.cfg.fix_first_node)
                 self.anchor_edge_id = self.graph.add_se2_edge(
@@ -314,15 +423,180 @@ class DeltaBackend:
         self.gps_queue = [g for g in self.gps_queue if g[0] > last]
         return updated
 
+    # --------------------------------------------------- building updates
     def update_building_nodes(self) -> bool:
-        """Keyframe<->building constraints (delta:639-737). Without
-        buildings near the new keyframes there is nothing to add."""
+        """Per-cycle keyframe<->building constraints (delta:639-737).
+
+        The reference's per-pair align_local loop (:687) runs as one
+        batched alignment over every (new keyframe, near building) pair,
+        with the frame transforms applied on the device and one read of
+        the results.
+        """
         if not self.cfg.enable_buildings or not self.new_keyframes:
             return False
-        if any(kf.near_buildings for kf in self.new_keyframes):
-            raise _slice3("keyframe<->building constraints")
+        updated = False
+        odom2map = self.trans_odom2map.copy()
+
+        pairs = []
+        for idx, kf in enumerate(self.new_keyframes):
+            # skip the very first keyframe of the run (:652-656)
+            if not self.keyframes and idx == 0:
+                break
+            if kf.global_alignment is None or not kf.near_buildings:
+                continue
+            odom = se2_compose_np(odom2map, kf.odom2d)
+            odom3d = transform_2d_to_3d_np(odom)
+            for b in kf.near_buildings:
+                bpose_inv = np.linalg.inv(transform_2d_to_3d_np(b.pose))
+                pairs.append((kf, b, odom, bpose_inv, bpose_inv @ odom3d))
+
+        if pairs:
+            P = len(pairs)
+            # building side: gathered from the canonical outline stack by
+            # pair index; keyframe side: the few unique keyframes' scan
+            # lines stacked once and gathered per pair
+            bs = list(self.buildings_manager.buildings)
+            ba, bb, bm, _ = self._building_stack(bs)
+            pos_of = {id(b): k for k, b in enumerate(bs)}
+            kfs, kpos = [], {}
+            for p in pairs:
+                if id(p[0]) not in kpos:
+                    kpos[id(p[0])] = len(kfs)
+                    kfs.append(p[0])
+            bidx = torch.as_tensor([pos_of[id(p[1])] for p in pairs], device=self.device)
+            kidx = torch.as_tensor([kpos[id(p[0])] for p in pairs], device=self.device)
+            ktree = LineSegments(*(torch.stack(f) for f in zip(
+                *[k.global_alignment.not_aligned_lines for k in kfs])))
+            Ts = np.stack([p[3] for p in pairs]).astype(np.float32)
+            Tt = np.stack([p[4] for p in pairs]).astype(np.float32)
+            with self.timer.stage("align_local"):
+                src = _line_stack_of(ba[bidx], bb[bidx], bm[bidx])
+                tgt = LineSegments(*(f[kidx] for f in ktree))
+                res = self.scanmatcher.align_local_batch(src, tgt, Ts, Tt, 0.5)
+                fit = res.fitness
+                host = torch.cat([
+                    res.transformation.reshape(P, 16), fit.avg_distance[:, None],
+                    fit.coverage_percentage[:, None],
+                    res.is_edge_aligned[:, None].to(fit.avg_distance.dtype),
+                ], 1).cpu().numpy()
+            T_all = host[:, :16].reshape(P, 4, 4)
+
+            for k, (kf, b, odom, _, _) in enumerate(pairs):
+                T = T_all[k]
+                if np.allclose(T, np.eye(4), atol=1e-9):
+                    continue
+                info = self.inf_calculator.calc_information_matrix_buildings_local(
+                    float(host[k, 16]), float(host[k, 17]), bool(host[k, 18])
+                )
+                trans2d = transform_3d_to_2d_np(T)
+                # relpose keyframe -> (building.pose * trans) (:700-703)
+                bt = se2_compose_np(b.pose, trans2d)
+                relpose = se2_compose_np(se2_inverse_np(odom), bt)
+                self.graph.add_se2_edge(
+                    kf.node_id, b.node_id, relpose, info, level=1,
+                    kernel=self.cfg.building_edge_robust_kernel,
+                    delta=self.cfg.building_edge_robust_kernel_size,
+                )
+                updated = True
+
+        # global-alignment position/yaw priors (:710-727)
+        for idx, kf in enumerate(self.new_keyframes):
+            if not self.keyframes and idx == 0:
+                break
+            if kf.global_alignment is None or not kf.near_buildings:
+                continue
+            ga = kf.global_alignment
+            if ga.fitness.coverage < 35.0:
+                continue
+            info3 = self.inf_calculator.calc_information_matrix_buildings_global(
+                ga.fitness.real_avg_distance)
+            self.graph.add_prior_xy(
+                kf.node_id, kf.estimated_odom[:2], info3[:2, :2], level=0,
+                kernel=self.cfg.building_edge_robust_kernel,
+                delta=self.cfg.building_edge_robust_kernel_size,
+            )
+            self.graph.add_prior_yaw(
+                kf.node_id, kf.estimated_odom[2], info3[2, 2], level=0,
+                kernel=self.cfg.building_edge_robust_kernel,
+                delta=self.cfg.building_edge_robust_kernel_size,
+            )
         self.read_until_stamp = self.new_keyframes[-1].stamp + 3.0
-        return False
+        return updated
+
+    def get_overlapped_buildings(self):
+        """All overlapping building pairs, tested in one batch."""
+        bs, idx = self._overlapped_pairs()
+        return [(bs[i], bs[j]) for i, j in idx]
+
+    def _overlapped_pairs(self):
+        """(buildings list, [(i, j) index pairs] of overlapped ones): every
+        pair's shrunken-polygon test in one (P, La, Lb) batch, one read."""
+        if self.buildings_manager is None:
+            return [], []
+        bs = list(self.buildings_manager.buildings)
+        if len(bs) < 2:
+            return bs, []
+        pairs = [(i, j) for i in range(len(bs)) for j in range(i + 1, len(bs))]
+        ov = are_buildings_overlapped(*self._pair_lines(bs, self.poses, pairs)).cpu().numpy()
+        return bs, [p for p, o in zip(pairs, ov) if o]
+
+    def _pair_lines(self, bs, poses, pairs):
+        """_pair_map_lines of the (i, j) index pairs of buildings ``bs``."""
+        ba, bb, bm, bp = self._building_stack(bs)
+        est = torch.as_tensor(np.stack([b.estimate(poses) for b in bs]),
+                              dtype=ba.dtype, device=self.device)
+        ii = torch.as_tensor([p[0] for p in pairs], device=self.device)
+        jj = torch.as_tensor([p[1] for p in pairs], device=self.device)
+        return _pair_map_lines(ba, bb, bm, bp, est, ii, jj)
+
+    def _building_stack(self, bs):
+        """Canonical device stack of raw building outlines (download frame),
+        rebuilt only when new buildings arrive. Returns (a (B,L,2),
+        b (B,L,2), mask (B,L), poses (B,3)) float32 tensors."""
+        if self._bstack is not None and self._bstack[0] == len(bs):
+            return self._bstack[1]
+        out = (torch.stack([b.lines.a for b in bs]), torch.stack([b.lines.b for b in bs]),
+               torch.stack([b.lines.mask for b in bs]),
+               torch.as_tensor(np.stack([b.pose for b in bs]), dtype=torch.float32,
+                               device=self.device))
+        self._bstack = (len(bs), out)
+        return out
+
+    def _deoverlap_round(self):
+        """One round of the de-overlap loop (:846-899): returns False when
+        no two buildings overlap; otherwise moves every overlapped pair
+        apart with a level-2 edge and solves level 2."""
+        with self.timer.stage("overlap_test"):
+            bs, idx = self._overlapped_pairs()
+        if not idx:
+            return False
+        pairs = [(bs[i], bs[j]) for i, j in idx]
+        poses = self.poses
+        with self.timer.stage("align_overlapped"):
+            # one batched alignment for all overlapped pairs of the round
+            # (the reference loops align_overlapped_buildings per pair,
+            # delta:873-885)
+            laa, lab, lam, _, lba, lbb, lbm, _ = self._pair_lines(bs, poses, idx)
+            T_all, found = self.scanmatcher.align_overlapped_batch(
+                _line_stack_of(laa, lab, lam), _line_stack_of(lba, lbb, lbm),
+                np.stack([A.estimate(poses) for A, _ in pairs]),
+                np.stack([Bb.estimate(poses) for _, Bb in pairs]))
+            host = torch.cat([T_all.reshape(len(pairs), 16),
+                              found[:, None].to(T_all.dtype)], 1).cpu().numpy()
+        for k, (A, Bb) in enumerate(pairs):
+            if not host[k, 16]:
+                continue
+            trans2d = transform_3d_to_2d_np(host[k, :16].reshape(4, 4).astype(np.float64))
+            ta = se2_compose_np(trans2d, A.estimate(poses))
+            relpose = se2_compose_np(se2_inverse_np(ta), Bb.estimate(poses))
+            self.overlap_edge_ids.append(self.graph.add_se2_edge(
+                A.node_id, Bb.node_id, relpose, np.eye(3) * 1e4, level=2,
+                kernel=self.cfg.building_edge_robust_kernel,
+                delta=self.cfg.building_edge_robust_kernel_size,
+            ))
+        with self.timer.stage("optimize_level2"):
+            self._optimize(2)
+        return True
 
     # --------------------------------------------------------- optimization
     def _optimize(self, level):
@@ -390,9 +664,17 @@ class DeltaBackend:
             s1 = self._optimize(1)
         stats["chi2_level0"] = float(s0.chi2_final)
         stats["chi2_level1"] = float(s1.chi2_final)
-        # the de-overlap loop (:846-899) runs over overlapping buildings;
-        # without building nodes it has nothing to do
-        stats["deoverlap_rounds"] = 0
+
+        # de-overlap loop (:846-899), at most 15 rounds; the previous
+        # step's overlap edges go first
+        for eid in self.overlap_edge_ids:
+            self.graph.remove_edge(eid)
+        self.overlap_edge_ids = []
+        rounds = 0
+        if self.cfg.enable_buildings:
+            while rounds < 15 and self._deoverlap_round():
+                rounds += 1
+        stats["deoverlap_rounds"] = rounds
 
         # odom->map update + snapshots (:905-916)
         poses = self.poses
@@ -408,11 +690,32 @@ class DeltaBackend:
         return stats
 
     # ------------------------------------------------------------- export
+    def save_map(self, destination, resolution=0.05) -> bool:
+        """map.pcd (keyframe clouds at their optimized poses, occupied-voxel
+        centers), b_map.pcd (the raw building outlines) and
+        aligned_b_map.pcd (the outlines at the buildings' estimates),
+        delta_graph_slam_nodelet.cpp:1181-1201."""
+        os.makedirs(destination, exist_ok=True)
+        cloud = self.map_generator.generate(self.snapshots, resolution)
+        if cloud is None or not len(cloud):
+            return False
+        save_pcd(os.path.join(destination, "map.pcd"), cloud)
+        if self.buildings_manager is not None:
+            poses = self.poses
+            raw, aligned = [], []
+            for b in list(self.buildings_manager.buildings):
+                raw.append(b.cloud.points[b.cloud.mask].cpu().numpy())
+                ac = b.get_cloud(poses)
+                aligned.append(ac.points[ac.mask].cpu().numpy())
+            if raw:
+                save_pcd(os.path.join(destination, "b_map.pcd"), np.concatenate(raw))
+                save_pcd(os.path.join(destination, "aligned_b_map.pcd"),
+                         np.concatenate(aligned))
+        return True
+
     def dump_graph(self, destination) -> bool:
         """DumpGraph service equivalent: the g2o text graph + .kernels
         sidecar and the array checkpoint."""
-        import os
-
         from ..graph.graph_io import save_g2o, save_npz
 
         os.makedirs(destination, exist_ok=True)

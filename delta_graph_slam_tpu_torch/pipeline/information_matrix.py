@@ -9,9 +9,12 @@ Replicates InformationMatrixCalculator
 - calc_information_matrix: saturating-exponential weight() maps fitness to
   [min_var, max_var]; info = diag(1/w_x, 1/w_x, 1/w_q) (:53-75). NB the
   reference divides by the *variance-valued* weight here and by the raw
-  stddev in the const path (:54-58) - both reproduced.
-
-The building-constraint matrices (:110-157) come with the building port.
+  stddev in the const path (:54-58) - both reproduced;
+- the building-constraint matrices (:110-157): the global-alignment prior
+  weighted by fitness over the global importance ratio, the
+  keyframe<->building edge by a logistic weight of the local alignment's
+  distance, scaled by its coverage and, when edge-aligned, by the local
+  importance ratio.
 """
 
 import dataclasses
@@ -108,3 +111,19 @@ class InformationMatrixCalculator:
 
     def calc_information_matrices_se3(self, items):
         return [self.calc_information_matrix_se3(c1, c2, T) for c1, c2, T in items]
+
+    def calc_information_matrix_buildings_global(self, fitness):
+        if self.use_const_inf_matrix:
+            return self._const_info(2, 1)
+        return self._weighted_info(fitness) / self.b_importance_ratio_global
+
+    def calc_information_matrix_buildings_local(self, avg_distance, coverage_percentage,
+                                                is_edge_aligned):
+        w_x = self.b_weight(self.b_var_gain_a, self.b_avg_fitness_score,
+                            self.b_min_stddev_x**2, self.b_max_stddev_x**2, avg_distance)
+        w_q = self.b_weight(self.b_var_gain_a, self.b_avg_fitness_score,
+                            self.b_min_stddev_q**2, self.b_max_stddev_q**2, avg_distance)
+        inf = np.diag([1.0 / w_x, 1.0 / w_x, 1.0 / w_q])
+        if is_edge_aligned:
+            inf = inf * self.b_importance_ratio_local
+        return inf * (coverage_percentage / 100.0)

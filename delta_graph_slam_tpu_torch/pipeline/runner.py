@@ -75,6 +75,9 @@ class Pipeline:
             stats = s or stats
         return stats
 
+    def save_map(self, destination, resolution=0.05):
+        return self.backend.save_map(destination, resolution)
+
     def evaluate(self):
         return self.backend.compute_ate_rpe()
 

@@ -29,6 +29,10 @@ class StageTimer:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
 
+    def reset(self):
+        self.totals.clear()
+        self.counts.clear()
+
     def mean_ms(self, name):
         c = self.counts[name]
         return 1000.0 * self.totals[name] / c if c else 0.0

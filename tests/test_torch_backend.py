@@ -30,7 +30,7 @@ from delta_graph_slam_tpu.pipeline.loop_detector import LoopDetector as RLoopDet
 from delta_graph_slam_tpu.register import RegistrationConfig as RRegConfig
 from delta_graph_slam_tpu.register import make_registration as r_make_registration
 from delta_graph_slam_tpu.utils.metrics import ate_rpe_se2 as r_ate_rpe_se2
-from delta_graph_slam_tpu_torch.buildings import BuildingManager, StaticProvider
+from delta_graph_slam_tpu_torch.buildings import Building, BuildingManager, StaticProvider
 from delta_graph_slam_tpu_torch.buildings import parse_osm_xml
 from delta_graph_slam_tpu_torch.config import get_preset as p_get_preset
 from delta_graph_slam_tpu_torch.geom import projection
@@ -164,15 +164,18 @@ def test_nmea_callback_sets_the_origin():
     assert be.gps_queue and be.buildings_manager is not None
 
 
-def test_buildings_in_range_raise():
-    """A world with buildings fails loudly until slice 3 (never skipped)."""
+def test_buildings_in_range_become_buildings():
+    """OSM ways in range become Building entities with their outline on
+    the manager's device (the parity with the reference is
+    tests/test_torch_buildings.py); a world without buildings yields none."""
     world = p_kitti.make_city_world(seed=0)
     mgr = BuildingManager(StaticProvider(world.osm_xml()),
                           projection.mercator_from_gps(*world.origin_gps, 0.0,
                                                        scale=1.0), 1.0,
                           synchronous=True)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        mgr.get_buildings(*world.origin_gps)
+    got = mgr.get_buildings(*world.origin_gps)
+    assert got and all(isinstance(b, Building) and b.node_id is None for b in got)
+    assert all(b.lines.mask.any() and b.cloud.mask.any() for b in got)
     empty = BuildingManager(StaticProvider(EMPTY), np.zeros(3), 1.0)
     assert empty.get_buildings(*GPS0) == []
 
@@ -309,7 +312,8 @@ def test_loop_matching_matches_reference():
 def drift_lap():
     """tests/test_pipeline_e2e.py:334-390: a 52-frame out-and-back lap,
     keyframe odometry = ground truth composed with an injected random-walk
-    drift, the same prefiltered clouds to both packages."""
+    drift, the same prefiltered clouds to both packages; and the world whose
+    buildings tests/test_torch_building_drive.py drives them against."""
     world, frames = synthetic_city_sequence(n_frames=52, speed=3.0,
                                             trajectory="lap", turn_frames=20)
     from delta_graph_slam_tpu.geom import se2_compose as r_compose, se2_inverse as r_inverse
@@ -323,7 +327,7 @@ def drift_lap():
     for fr in frames:
         out = pre.process(fr.points)
         clouds.append((cloud_to_numpy(out.filtered3d), cloud_to_numpy(out.filtered2d)))
-    return frames, gts, clouds
+    return world, frames, gts, clouds
 
 
 def _drive(frames, gts, clouds, enable_loops, port):
@@ -365,7 +369,7 @@ def _loop_edges(be):
 
 
 def test_backend_parity_on_the_drift_lap(drift_lap, tmp_path):
-    frames, gts, clouds = drift_lap
+    _, frames, gts, clouds = drift_lap
     ref, r_steps = _drive(frames, gts, clouds, True, port=False)
     port, p_steps = _drive(frames, gts, clouds, True, port=True)
     assert [k.stamp for k in port.keyframes] == [k.stamp for k in ref.keyframes]
