@@ -10,12 +10,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      git-ignored _build/ directory;
   3. kernel vs plain: the 1-NN kernel against its plain PyTorch version
      (ops/knn.py:nn_1_reference) on the card, at the fitness shape
-     32768 x 32768 and at ragged, self-excluding and target-less shapes;
-     both timed with CUDA events;
-  4. the front end: 40 raycast frames through Pipeline(get_preset('delta'),
-     device='cuda') at full capacity, GPS fed every frame, then finish();
-     checks the odometry edges, the kernel launch count of that run,
-     convergence and drift;
+     32768 x 32768 (28000 x 27500 valid), at ragged, single-query,
+     self-excluding and target-less shapes, and on duplicated targets whose
+     equal minima fall in different slices and tiles (indices exact); the
+     fitness case three times, bitwise equal; at the fitness shape the
+     kernel, the plain version and torch.cdist(...).min(1) (a yardstick the
+     port never calls) timed with CUDA events beside the FP32 bound and the
+     SM clock;
+  4. the front end: 40 raycast frames through Pipeline(get_preset('delta'))
+     on the card at full capacity, GPS fed every frame, then finish(), run
+     twice: the odometry poses of the two runs must be bitwise equal; the
+     second run checks the odometry edges, the kernel launch count,
+     convergence and drift; then the voxel sums of one scan (the run-wise
+     segment_sum against the float index_add_ it replaced) timed, five
+     runs each, the segment sum unchanged over them;
   5. small input: the same pipeline at a small size on the card and through
      the plain CPU path, which must agree;
   6. graph solve: the 4096-node two-lap pose graph of bench.py, solved by
@@ -35,7 +43,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      keyframe<->building edge, >= 1 global prior, align_global on every
      keyframe with buildings in range, finite chi2 on every cycle, <= 15
      de-overlap rounds a cycle, ATE <= 1.0 m and three non-empty PCD
-     files; the same frames without buildings are printed beside it.
+     files; the drive again on the same frames, whose keyframe poses,
+     odometry, estimated_odom, chi2 per cycle and ATE must be bitwise
+     equal to the first; the same frames without buildings are printed
+     beside it.
 The line before the last is the kernel report, the last line the result.
 With --out, a JSON file with every measurement goes into DIR.
 """
@@ -53,6 +64,9 @@ import numpy as np
 
 N_FRAMES = 40
 REPLACES = "delta_graph_slam_tpu/ops/pallas_nn.py:30"
+FP32_FLOPS = 67e12        # H100 SXM, FP32 outside the tensor cores, 700 W
+HBM_BYTES_S = 3.35e12     # H100 SXM HBM3
+FLOP_PER_PAIR = 8         # |q - t|^2: 3 subtracts, 3 multiplies, 2 adds
 EMPTY_OSM = "<osm></osm>"
 GRAPH_NODES = 4096
 LAP_FRAMES = 120
@@ -75,8 +89,10 @@ def phase(name):
     return time.perf_counter()
 
 
-def cuda_ms(fn, reps=20, warmup=3):
-    """Median milliseconds of ``fn`` on the card over ``reps`` runs."""
+def cuda_ms(fn, reps=20, warmup=3, inner=1):
+    """Median milliseconds of ``fn`` on the card over ``reps`` timings of
+    ``inner`` back-to-back calls each (inner > 1 keeps the host's launch
+    latency out of a short kernel's time)."""
     import torch
 
     for _ in range(warmup):
@@ -86,11 +102,37 @@ def cuda_ms(fn, reps=20, warmup=3):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def smi(query):
+    """One nvidia-smi reading of ``query`` (comma-separated fields)."""
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def sampled_clocks(fn):
+    """Runs ``fn`` while nvidia-smi samples the SM clock every 50 ms;
+    returns (fn's result, the samples in MHz)."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                             "--format=csv,noheader,nounits", "-lms", "50"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                            text=True)
+    try:
+        out = fn()
+    finally:
+        proc.terminate()
+        text, _ = proc.communicate(timeout=60)
+    mhz = [int(x) for x in text.split() if x.isdigit()]
+    return out, mhz
 
 
 def nn_cases(rng):
@@ -100,6 +142,8 @@ def nn_cases(rng):
         # rounding of |q|^2 - 2q.t + |t|^2 stays well under the 1e-3 limit
         return np.stack([rng.uniform(-25, 25, n), rng.uniform(-25, 25, n),
                          rng.uniform(-2, 3, n)], 1).astype(np.float32)
+
+    from delta_graph_slam_tpu_torch.ops.nn_kernel import tie_case
 
     big = 32768
     prefix = np.arange(big) < 28000               # compacted clouds: a prefix
@@ -111,9 +155,12 @@ def nn_cases(rng):
          np.arange(big) < 27500, False),
         ("ragged_1000x3001", q1, rng.random(1000) > 0.1, t1,
          rng.random(3001) > 0.2, False),
+        ("single_query_1x4097", box(1), np.ones(1, bool), box(4097),
+         rng.random(4097) > 0.2, False),
         ("exclude_self_8192", self_pts, self_mask, self_pts, self_mask, True),
         ("all_targets_invalid", q1, rng.random(1000) > 0.1, t1,
          np.zeros(3001, bool), False),
+        ("ties_3000x8192", *tie_case(rng), False),
     ]
 
 
@@ -140,15 +187,45 @@ def kernel_vs_plain(report):
               f"{agree:.5f} (limit 0.99), finite {int(fin.sum())}", flush=True)
         check(err <= 1e-3, f"{name}: d2 error {err} > 1e-3")
         check(agree >= 0.99, f"{name}: index agreement {agree} < 0.99")
+        if name.startswith("ties"):
+            check(np.array_equal(i_k, i_r) and (i_k < len(t) // 4).all(),
+                  f"{name}: indices differ from the plain version's first copy")
         report["kernel_cases"][name] = {"max_abs_err": err, "index_agreement": agree}
-    # times at the fitness shape, the one every odometry edge runs
+
+    # the fitness shape, the one every odometry edge runs
     _, q, qm, t, tm, _ = nn_cases(np.random.default_rng(0))[0]
     args = [torch.from_numpy(x).cuda() for x in (q, qm, t, tm)]
-    ms = cuda_ms(lambda: nn_kernel.nn_1_cuda(*args))
-    plain_ms = cuda_ms(lambda: knn.nn_1_reference(*args))
-    print(f"nn1 at 32768x32768: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"(median of 20, CUDA events)", flush=True)
-    return worst, ms, plain_ms
+    runs = [nn_kernel.nn_1_cuda(*args) for _ in range(3)]
+    same = all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+    print(f"fitness case three times: bitwise equal {same}", flush=True)
+    check(same, "the kernel's outputs differ between runs on the same inputs")
+
+    nq, nt = int(qm.sum()), int(tm.sum())
+    qv, tv = args[0][:nq], args[2][:nt]          # the valid prefixes
+    (ms, plain_ms, library_ms), mhz = sampled_clocks(lambda: (
+        cuda_ms(lambda: nn_kernel.nn_1_cuda(*args), inner=10),
+        cuda_ms(lambda: knn.nn_1_reference(*args)),
+        cuda_ms(lambda: torch.cdist(qv, tv).min(dim=1))))
+    pairs = nq * nt
+    flop_ms = FLOP_PER_PAIR * pairs / FP32_FLOPS * 1e3
+    io_bytes = sum(x.numel() * x.element_size() for x in args) + len(q) * 8
+    byte_ms = io_bytes / HBM_BYTES_S * 1e3
+    bound_ms = max(flop_ms, byte_ms)
+    timing = {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+        "bound_share": bound_ms / ms, "valid_pairs": pairs, "flop_ms": flop_ms,
+        "byte_ms": byte_ms, "sm_clock_mhz": mhz,
+        "power_limit": smi("power.limit"),
+    }
+    print(f"nn1 at 32768x32768 ({nq} x {nt} valid): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.cdist().min(1) {library_ms:.4f} ms (medians "
+          f"of 20, CUDA events); bound {bound_ms:.4f} ms ({FLOP_PER_PAIR} FLOP x "
+          f"{pairs} pairs at 67 TFLOP/s FP32), {100 * bound_ms / ms:.1f}% of it; "
+          f"SM clock {min(mhz, default=0)}-{max(mhz, default=0)} MHz over "
+          f"{len(mhz)} samples, power limit {timing['power_limit']}", flush=True)
+    report["nn1_timing"] = timing
+    return worst, timing
 
 
 def rel_gt(frames):
@@ -195,10 +272,11 @@ def run_slice(report):
           f"{np.mean([len(f.points) for f in frames]):.0f} returns/frame)",
           flush=True)
     cfg = get_preset("delta")
-    # warm-up on a throw-away pipeline: CUDA context, cuBLAS, allocator
-    warm = make_pipeline(cfg)
-    drive(warm, frames[:3])
-    warm.finish()
+    # a first run of the same frames: the warm-up (CUDA context, cuBLAS,
+    # allocator) and the twin of the repeatability check below
+    first = make_pipeline(cfg)
+    odo_first = drive(first, frames)
+    first.finish()
     torch.cuda.synchronize()
 
     pipe = make_pipeline(cfg)
@@ -210,6 +288,11 @@ def run_slice(report):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = nn_kernel.launches
+    same = all(np.array_equal(a.pose, b.pose) for a, b in zip(odo, odo_first))
+    print(f"two runs of the {N_FRAMES} frames: odometry poses bitwise equal "
+          f"{same}", flush=True)
+    check(same, "the front end's odometry differs between two runs of the "
+          "same frames")
 
     edges = odometry_edges(pipe.backend)
     finite = [e for e in edges if np.isfinite(e["info"]).all()]
@@ -235,6 +318,7 @@ def run_slice(report):
         "ms_per_frame": per_frame, "timing": timing,
         "odometry_edges": len(edges), "finite_edges": len(finite),
         "nn1_launches": launches, "converged_fraction": float(converged),
+        "repeatable": same,
         "drift_m": drift, "path_m": path, "gn_iterations": iters,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
     }
@@ -245,6 +329,65 @@ def run_slice(report):
     check(converged >= 0.9, f"only {converged:.3f} of frames converged")
     check(drift <= 0.05 * path, f"drift {drift:.3f} m > 5% of {path:.3f} m")
     return launches
+
+
+def voxel_sums(report):
+    """The per-cell sums of ops/voxel.py at the front end's two shapes, on
+    one full-capacity raycast scan: the run-wise ``segment_sum`` the port
+    uses against the float ``index_add_`` (CUDA atomics) it replaced,
+    CUDA-event medians, and how many outputs change over five runs of
+    each. The two must agree to float32 rounding; the run-wise sum must
+    not change."""
+    import torch
+
+    from delta_graph_slam_tpu_torch.config import get_preset
+    from delta_graph_slam_tpu_torch.io.kitti import make_city_world
+    from delta_graph_slam_tpu_torch.io.lidar_sim import raycast_scan
+    from delta_graph_slam_tpu_torch.ops import voxel
+    from delta_graph_slam_tpu_torch.ops.cloud import make_cloud
+    from delta_graph_slam_tpu_torch.ops.segment import segment_sum
+
+    pre = get_preset("delta").prefiltering
+    scan = raycast_scan(make_city_world(seed=0), np.array([-40.0, 0.5, 0.0]), seed=0)
+    cloud = make_cloud(scan[:, :3], capacity=pre.raw_capacity, device="cuda")
+    report["voxel_sums"] = []
+    # (resolution, cells, columns): voxel_downsample's centroid sums and
+    # build_voxel_hash's cell statistics at the registration's 1 m
+    for res, cells, cols in ((pre.downsample_resolution, pre.out_capacity, 4),
+                             (1.0, 8192, 13)):
+        pts_s, _, valid_s, first = voxel._sorted_segments(cloud.points, cloud.mask, res)
+        seg = voxel._segment_ids(first, valid_s, cells)
+        vals = torch.cat([pts_s] * 5, 1)[:, :cols].contiguous()
+        sums = {
+            "segment_sum": lambda: segment_sum(vals, seg, cells, sorted_ids=True),
+            "index_add_": lambda: vals.new_zeros((cells + 1, cols))
+            .index_add_(0, seg, vals)[:-1],
+        }
+        row = {"resolution": res, "rows": len(seg), "valid_rows": int(valid_s.sum()),
+               "cells": cells, "columns": cols}
+        first_out = {}
+        for name, fn in sums.items():
+            outs = [fn() for _ in range(5)]
+            first_out[name] = outs[0]
+            row[name] = {"ms": cuda_ms(fn),
+                         "changing_over_5_runs": int(sum((o != outs[0]).sum() for o in outs))}
+        ref = first_out["index_add_"]
+        gap = float((first_out["segment_sum"] - ref).abs().max())
+        row["max_abs_gap"] = gap
+        print(f"voxel sums at {res} m, {cells} cells x {cols} columns "
+              f"({row['valid_rows']} of {row['rows']} rows valid): segment_sum "
+              f"{row['segment_sum']['ms']:.4f} ms, "
+              f"{row['segment_sum']['changing_over_5_runs']} outputs changing over "
+              f"5 runs; index_add_ {row['index_add_']['ms']:.4f} ms, "
+              f"{row['index_add_']['changing_over_5_runs']} changing; max gap {gap:.3g}",
+              flush=True)
+        report["voxel_sums"].append(row)
+        check(row["segment_sum"]["changing_over_5_runs"] == 0,
+              "the run-wise voxel sum changed between runs")
+        # float32 sums of the same values in another order: within 1e-4 of
+        # the largest cell sum
+        check(gap <= 1e-4 * float(ref.abs().max()),
+              f"segment_sum and index_add_ differ by {gap}")
 
 
 def small_check(report):
@@ -674,6 +817,13 @@ def building_counts(backend):
     return len(mgr.buildings), len(bnodes), kb, priors
 
 
+def drive_record(backend, field):
+    """One keyframe field of every keyframe as bytes (None kept), for a
+    bitwise comparison of two drives."""
+    return [None if getattr(k, field) is None else np.asarray(getattr(k, field)).tobytes()
+            for k in backend.keyframes]
+
+
 def run_buildings(report):
     import tempfile
 
@@ -722,6 +872,19 @@ def run_buildings(report):
                for n in ("map.pcd", "b_map.pcd", "aligned_b_map.pcd")}
     print(f"save_map: {saved}, points {pcd}", flush=True)
 
+    # the same frames again: the drive must repeat bit for bit
+    pipe_2, cycles_2, wall_2 = city_drive(world, frames, gts)
+    same = {
+        "poses": np.array_equal(be.poses, pipe_2.backend.poses),
+        "odom": drive_record(be, "odom") == drive_record(pipe_2.backend, "odom"),
+        "estimated_odom": drive_record(be, "estimated_odom")
+        == drive_record(pipe_2.backend, "estimated_odom"),
+        "chi2": chi2 == [(c["chi2_level0"], c["chi2_level1"]) for c in cycles_2],
+        "ate": m["ATE_mean"] == pipe_2.evaluate()["ATE_mean"],
+    }
+    print(f"the drive twice: bitwise equal {same} ({CITY_FRAMES / wall_2:.3f} "
+          "frames/s the second time)", flush=True)
+
     pipe_n, _, wall_n = city_drive(world, frames, gts, buildings=False)
     m_n = pipe_n.evaluate()
     print("ATE {ATE_mean:.4f} m (std {ATE_std:.4f}), t-RPE {t_RPE_mean:.4f} m, "
@@ -737,6 +900,7 @@ def run_buildings(report):
         "nn1_launches": launches, "ms_per_call": per_call, "timing": t,
         "metrics": m, "pcd_points": pcd, "no_buildings_metrics": m_n,
         "no_buildings_frames_per_s": CITY_FRAMES / wall_n,
+        "repeat_bitwise_equal": same, "repeat_frames_per_s": CITY_FRAMES / wall_2,
     }
     check(n_bv >= 3, f"{n_bv} building vertices, need 3")
     check(n_kb >= 1, "no keyframe<->building edge")
@@ -749,6 +913,7 @@ def run_buildings(report):
     check(max(rounds) <= 15, f"de-overlap rounds {rounds} above 15")
     check(m["ATE_mean"] <= 1.0, f"ATE {m['ATE_mean']} m > 1.0 m")
     check(saved and all(n > 0 for n in pcd.values()), f"save_map wrote {pcd}")
+    check(all(same.values()), f"two drives of the same frames differ: {same}")
     return launches
 
 
@@ -783,15 +948,19 @@ def main():
     lib = nn_kernel.build()
     build_s = time.perf_counter() - t
     print(f"built {lib.relative_to(root)} in {build_s:.2f} s", flush=True)
-    report["build_s"] = build_s
+    log = lib.with_name(lib.name + ".log")
+    ptxas = [ln.strip() for ln in log.read_text().splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    print("\n".join(ptxas), flush=True)
+    report.update(build_s=build_s, ptxas=ptxas)
 
     t = phase("kernel vs plain")
-    err, ms, plain_ms = kernel_vs_plain(report)
-    report.update(nn1_ms=ms, nn1_plain_ms=plain_ms)
+    err, timing = kernel_vs_plain(report)
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
     t = phase("slice: 40 frames, delta preset, full capacity")
     launches = run_slice(report)
+    voxel_sums(report)
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
     t = phase("small input: card vs plain CPU path")
@@ -825,7 +994,8 @@ def main():
         "name": "nn1", "route": "cuda",
         "source": "delta_graph_slam_tpu_torch/csrc/nn1.cu",
         "replaces": REPLACES, "launches": launches, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms,
+        **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "bound_share")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

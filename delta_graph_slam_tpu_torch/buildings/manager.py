@@ -25,6 +25,7 @@ from ..geom.interpolate import interpolate_segment
 from ..geom.projection import mercator_from_gps
 from ..lines.features import make_lines
 from ..ops.cloud import MaskedCloud
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .building import Building
 
 
@@ -107,7 +108,7 @@ class BuildingManager:
         interpolation_capacity: int = 4096,
         line_capacity: int = 16,
         synchronous: bool = False,
-        device="cpu",
+        device=DEFAULT_DEVICE,
     ):
         self.provider = provider
         self.origin = np.asarray(origin, float)
@@ -120,7 +121,7 @@ class BuildingManager:
         self.graph_add_prior_xy = graph_add_prior_xy
         self.graph_add_prior_yaw = graph_add_prior_yaw
         self.synchronous = synchronous
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         self._lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None

@@ -28,8 +28,9 @@ from typing import NamedTuple
 import torch
 
 from ..geom.se2 import normalize_angle
+from ..ops.segment import segment_sum
 from .chain_solve import _scatter_tridiag, chain_core_solve, finish_tridiag, shift_chain
-from .lm_core import LinSys, SolverConfig, SolverStats, bmv, segment_sum
+from .lm_core import LinSys, SolverConfig, SolverStats, bmv
 from .robust import robust_rho, robust_weight
 from .solver import _apply_update, _linearize
 

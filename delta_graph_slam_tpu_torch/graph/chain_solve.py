@@ -34,7 +34,8 @@ inverts it with the adjugate; so does the float64 path here.
 
 import torch
 
-from .lm_core import LinSys, bmv, matvec, segment_sum
+from ..ops.segment import segment_sum
+from .lm_core import LinSys, bmv, matvec
 
 
 def _T(a):

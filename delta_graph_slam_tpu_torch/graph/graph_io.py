@@ -12,6 +12,7 @@ path.
 
 import numpy as np
 
+from ..utils.device import DEFAULT_DEVICE
 from .robust import ROBUST_KERNELS
 from .se2_graph import SE2GraphBuilder
 
@@ -69,9 +70,9 @@ def save_g2o(builder: SE2GraphBuilder, path):
         f.write("\n".join(kernel_lines) + ("\n" if kernel_lines else ""))
 
 
-def load_g2o(path) -> SE2GraphBuilder:
+def load_g2o(path, device=DEFAULT_DEVICE) -> SE2GraphBuilder:
     """Parse the subset written by save_g2o (plus FIX lines)."""
-    b = SE2GraphBuilder()
+    b = SE2GraphBuilder(device=device)
     kernels = {}
     try:
         with open(str(path) + ".kernels") as f:
@@ -146,9 +147,9 @@ def save_npz(builder: SE2GraphBuilder, path):
     np.savez_compressed(path, **flat)
 
 
-def load_npz(path) -> SE2GraphBuilder:
+def load_npz(path, device=DEFAULT_DEVICE) -> SE2GraphBuilder:
     z = np.load(path)
-    b = SE2GraphBuilder()
+    b = SE2GraphBuilder(device=device)
     nv = int(z["vmask"].sum())
     for v in range(nv):
         b.add_vertex(z["poses"][v], fixed=bool(z["fixed"][v]))

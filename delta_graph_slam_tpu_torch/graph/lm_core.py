@@ -14,15 +14,17 @@ on the device until the solve returns. The linear algebra uses the ``_ex``
 forms (no error check), which would otherwise read a status from the
 device on every call.
 
-Every float scatter-add goes through ``segment_sum`` and runs under
-``deterministic()``, so a solve on the card gives the same bits every run.
+Every float scatter-add goes through ``segment_sum`` (ops/segment.py) and
+the solve runs under ``deterministic()``, so a solve on the card gives the
+same bits every run.
 """
 
-import contextlib
 import dataclasses
 from typing import NamedTuple
 
 import torch
+
+from ..ops.segment import segment_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,27 +71,6 @@ class SolverStats(NamedTuple):
     # chain backend: active off-chain edges beyond the Woodbury capacity
     # (0 elsewhere); non-zero means the solve dropped couplings
     n_offchain_dropped: torch.Tensor = None
-
-
-@contextlib.contextmanager
-def deterministic():
-    """Run the enclosed solve with torch's deterministic algorithms: the
-    float scatter-adds take the sort-based CUDA kernel instead of atomics,
-    whose order (and so the rounding of the sum) changes from run to run,
-    and LM's accept/reject near convergence sits on that rounding."""
-    prev = torch.are_deterministic_algorithms_enabled()
-    prev_warn = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(prev, warn_only=prev_warn)
-
-
-def segment_sum(vals, ids, n):
-    """out[v] = sum of vals[k] with ids[k] == v; (E, ...) -> (n, ...)."""
-    out = vals.new_zeros((n,) + tuple(vals.shape[1:]))
-    return out.index_put_((ids,), vals, accumulate=True)
 
 
 def bmv(a, v):

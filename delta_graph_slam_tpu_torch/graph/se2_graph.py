@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..geom.se2 import normalize_angle
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .robust import kernel_id
 
 
@@ -94,9 +95,9 @@ class SE2GraphBuilder:
     Edge ids are monotonic, so they stay unique after ``remove_edge``.
     """
 
-    def __init__(self, dtype=np.float64, device="cpu"):
+    def __init__(self, dtype=np.float64, device=DEFAULT_DEVICE):
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.poses = []
         self.fixed = []
         self.edges = []       # dicts: id, type, i, j, meas, info, level, kernel, delta

@@ -17,9 +17,9 @@ import math
 import torch
 
 from ..geom.se2 import normalize_angle
+from ..ops.segment import deterministic
 from .lm_core import (
-    SolverConfig, SolverStats, concat_sys, deterministic, lm_optimize,
-    pad_block,
+    SolverConfig, SolverStats, concat_sys, lm_optimize, pad_block,
 )
 from .robust import robust_rho, robust_weight
 from .se2_graph import SE2Graph

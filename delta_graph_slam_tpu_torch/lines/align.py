@@ -27,6 +27,7 @@ import torch
 from ..geom.se2 import se2_compose, se2_inverse
 from ..ops.cloud import MaskedCloud
 from ..ops.ransac import LineSegments, ransac_line
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .features import (
     EdgeFeatures, _rotate, _unit, align_edges, align_lines_pair, apply_rt, edge_extraction,
     gather_lines, make_lines, rot2, transform_lines,
@@ -303,9 +304,9 @@ class LineBasedScanmatcher:
     """
 
     def __init__(self, cfg: LineScanmatcherConfig = LineScanmatcherConfig(),
-                 device="cpu", sampler=None):
+                 device=DEFAULT_DEVICE, sampler=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if sampler is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(7)

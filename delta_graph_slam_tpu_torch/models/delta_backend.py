@@ -57,7 +57,7 @@ from ..pipeline.loop_detector import LoopDetector
 from ..pipeline.map_cloud_generator import MapCloudGenerator
 from ..register.config import RegistrationConfig
 from ..register.engine import make_registration
-from ..utils.device import resolve_device
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.profiling import StageTimer
 
 
@@ -189,7 +189,7 @@ class DeltaBackendConfig:
 
 class DeltaBackend:
     def __init__(self, cfg: DeltaBackendConfig = DeltaBackendConfig(),
-                 building_provider=None, device="cpu"):
+                 building_provider=None, device=DEFAULT_DEVICE):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.graph = SE2GraphBuilder(device=self.device)

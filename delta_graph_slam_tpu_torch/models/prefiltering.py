@@ -24,7 +24,7 @@ from ..ops.cloud import (
 from ..ops.normals import normal_filter
 from ..ops.outliers import radius_outlier_removal, statistical_outlier_removal
 from ..ops.voxel import voxel_downsample
-from ..utils.device import resolve_device
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,7 +119,7 @@ class PrefilteringStage:
     """
 
     def __init__(self, cfg: PrefilteringConfig = PrefilteringConfig(),
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         if cfg.deskewing:
             raise NotImplementedError("IMU deskewing is not ported yet")
         self.cfg = _resolve_neighbor_method(cfg)

@@ -29,7 +29,7 @@ from ..ops.knn import nn_1
 from ..ops.voxel_knn import voxel_nn
 from ..register.config import RegistrationConfig
 from ..register.engine import Registration, make_registration
-from ..utils.device import resolve_device
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +72,8 @@ def _rotation_angle(T):
 
 
 class ScanMatchingOdometry:
-    def __init__(self, cfg: OdometryConfig = OdometryConfig(), device="cpu"):
+    def __init__(self, cfg: OdometryConfig = OdometryConfig(),
+                 device=DEFAULT_DEVICE):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.registration: Registration = make_registration(cfg.registration)

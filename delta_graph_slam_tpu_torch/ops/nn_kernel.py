@@ -7,16 +7,22 @@ package, keyed by a hash of the source and the flags, so a fresh checkout
 builds it from the sources alone. Its plain PyTorch version is
 ``ops/knn.py:nn_1_reference``; ``ops/knn.py:nn_1`` dispatches between
 the two by the device of the tensors.
+
+``launch_geometry`` is the host half of the kernel's design: how many
+ways the target axis is split (blocks of one cluster) for each query
+tile. It is plain Python, so the CPU tests reach it.
 """
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -24,8 +30,18 @@ SOURCE = _PKG / "csrc" / "nn1.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# Mirrors of the constants of csrc/nn1.cu: queries a block owns (threads x
+# queries per thread), targets a staged tile holds, and the most splits of
+# the target axis (the portable cluster size).
+QUERIES_PER_BLOCK = 128 * 4
+TILE = 512
+MAX_SPLITS = 8
+# Blocks an SM should get, at least: enough to balance the card, few
+# enough to keep each split many tiles long (every cluster pays a merge).
+BLOCKS_PER_SM = 2
 
 # Kernel launches since import (or since the caller last reset it): a run
 # reads it to show that its main path went through the kernel.
@@ -58,6 +74,8 @@ def build() -> Path:
 
     The library is written under a temporary name and renamed into place,
     so processes that build at the same time never load a partial file.
+    The compiler's report (ptxas: registers, shared memory, spills) goes
+    beside it, in ``<library>.log``.
     """
     out = library_path()
     if out.exists():
@@ -72,8 +90,36 @@ def build() -> Path:
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}"
         )
+    out.with_name(out.name + ".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def launch_geometry(n: int, m: int, sm_count: int):
+    """(splits, q_tiles) of one launch for n queries and m targets.
+
+    The query axis gives q_tiles blocks; each gets ``splits`` blocks (one
+    cluster), split s scanning the target tiles s, s + splits, ...: the
+    largest power of two up to MAX_SPLITS that keeps the grid within
+    BLOCKS_PER_SM blocks an SM (at least one split), and never more
+    splits than target tiles, so that every split has a tile.
+    """
+    if n < 1 or m < 0 or sm_count < 1:
+        raise ValueError(f"bad geometry request: n={n} m={m} sm_count={sm_count}")
+    q_tiles = math.ceil(n / QUERIES_PER_BLOCK)
+    splits = 1
+    while splits * 2 <= min(BLOCKS_PER_SM * sm_count / q_tiles, MAX_SPLITS):
+        splits *= 2
+    return min(splits, max(1, math.ceil(m / TILE))), q_tiles
+
+
+_sm_counts = {}
+
+
+def sm_count(device) -> int:
+    if device not in _sm_counts:
+        _sm_counts[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sm_counts[device]
 
 
 def _library():
@@ -85,8 +131,8 @@ def _library():
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
             _lib = lib
@@ -134,15 +180,35 @@ def nn_1_cuda(query, qmask, target, tmask, *, exclude_self=False):
     idx = torch.empty((n,), dtype=torch.int32, device=device)
     if n == 0:
         return d2, idx
+    splits, _ = launch_geometry(n, m, sm_count(device))
     lib = _library()
+    packed = torch.empty((max(m, 1), 4), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.dgs_nn1(
             query.data_ptr(), qmask.data_ptr(), n,
             target.data_ptr(), tmask.data_ptr(), m,
-            int(bool(exclude_self)), d2.data_ptr(), idx.data_ptr(), stream,
+            int(bool(exclude_self)), splits, packed.data_ptr(),
+            d2.data_ptr(), idx.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"nn1 kernel launch failed: cudaError {err}")
     launches += 1
     return d2, idx
+
+
+def tie_case(rng, n=3000, copies=4):
+    """Host inputs (query, qmask, target, tmask) that hold the tie rule:
+    queries near a 16 x 16 x 8 grid of 1 m cells, and the grid repeated
+    ``copies`` times as targets, so every query's minimum is reached by
+    ``copies`` equal targets 2048 slots apart (four tiles: other splits of
+    the launch). Coordinates are multiples of 1/8 m, so every distance is
+    exact in float32 and the nearest grid point is unique: the kernel and
+    the plain version must both return the first copy."""
+    g = np.stack(np.meshgrid(np.arange(16), np.arange(16), np.arange(8),
+                             indexing="ij"), -1).reshape(-1, 3) - [8, 8, 4]
+    base = g.astype(np.float32)
+    pick = rng.integers(0, len(base), n)
+    q = base[pick] + rng.integers(-3, 4, (n, 3)) / np.float32(8)
+    t = np.tile(base, (copies, 1))
+    return (q.astype(np.float32), np.ones(n, bool), t, np.ones(len(t), bool))

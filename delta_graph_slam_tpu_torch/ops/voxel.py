@@ -13,10 +13,9 @@ jitted programs see the resolution as a compile-time constant and XLA
 turns that division into this product, so computing the product here puts
 every point in the same cell as the reference's production programs do.
 
-Scatter sums (centroids, cell statistics) use ``index_add_``: on the CPU
-it adds in index order, like XLA's segment_sum on the CPU; on CUDA it uses
-atomics, so the order of summation, and the last bits of a centroid,
-change from run to run.
+The per-cell sums (centroids, cell statistics) reduce each run of sorted
+points in order (ops/segment.py), so a cell's sum has the same bits on
+every run and, on the CPU, the bits of XLA's in-order segment_sum.
 """
 
 from typing import NamedTuple, Optional
@@ -25,6 +24,7 @@ import numpy as np
 import torch
 
 from .cloud import MaskedCloud
+from .segment import segment_sum
 
 _I32_MAX = 2**31 - 1
 DENSE_BITS = (8, 8, 6)  # default direct-address grid: 256 x 256 x 64 cells
@@ -97,8 +97,9 @@ def _sorted_segments(points, mask, resolution, coords=None):
 
 
 def _segment_ids(first, valid, capacity):
-    """Run index of each sorted point; invalid points and runs beyond the
-    capacity go to the dump slot ``capacity`` (XLA drops them)."""
+    """Run index of each sorted point, non-decreasing; invalid points and
+    runs beyond the capacity go to the dump slot ``capacity`` (XLA drops
+    them)."""
     seg = torch.cumsum(first.to(torch.int32), 0) - 1
     return torch.where(valid & (seg < capacity), seg, capacity).to(torch.int64)
 
@@ -109,17 +110,14 @@ def voxel_downsample(cloud: MaskedCloud, resolution, capacity_out=None) -> Maske
     Voxels beyond ``capacity_out`` (in cell-sorted order) are dropped.
     Output is compacted (valid prefix).
     """
-    n = cloud.capacity
     if capacity_out is None:
-        capacity_out = n
+        capacity_out = cloud.capacity
     pts_s, _, valid_s, first = _sorted_segments(cloud.points, cloud.mask, resolution)
     seg = _segment_ids(first, valid_s, capacity_out)
-    dtype, device = pts_s.dtype, pts_s.device
-    sums = torch.zeros((capacity_out + 1, 3), dtype=dtype, device=device)
-    sums.index_add_(0, seg, pts_s)
-    cnts = torch.zeros((capacity_out + 1,), dtype=dtype, device=device)
-    cnts.index_add_(0, seg, torch.ones((n,), dtype=dtype, device=device))
-    sums, cnts = sums[:-1], cnts[:-1]
+    ones = torch.ones_like(pts_s[:, :1])
+    stats = segment_sum(torch.cat([pts_s, ones], 1), seg, capacity_out,
+                        sorted_ids=True)
+    sums, cnts = stats[:, :3], stats[:, 3]
     mask_out = cnts > 0
     centroids = sums / torch.clamp(cnts, min=1.0)[:, None]
     return MaskedCloud(torch.where(mask_out[:, None], centroids, 0.0), mask_out)
@@ -194,18 +192,15 @@ def build_voxel_hash(cloud: MaskedCloud, resolution, capacity_voxels, bits=10,
     V = capacity_voxels
     segd = _segment_ids(first, valid_s, V)
     dtype = pts_s.dtype
-    cnt = torch.zeros((V + 1,), dtype=dtype, device=device)
-    cnt.index_add_(0, segd, torch.ones((n,), dtype=dtype, device=device))
-    cnt = cnt[:-1]
+    cols = [torch.ones_like(pts_s[:, :1])]
     if with_stats:
-        psum = torch.zeros((V + 1, 3), dtype=dtype, device=device)
-        psum.index_add_(0, segd, pts_s)
-        outer = pts_s[:, :, None] * pts_s[:, None, :]
-        osum = torch.zeros((V + 1, 3, 3), dtype=dtype, device=device)
-        osum.index_add_(0, segd, outer)
+        cols += [pts_s, (pts_s[:, :, None] * pts_s[:, None, :]).reshape(n, 9)]
+    stats = segment_sum(torch.cat(cols, 1), segd, V, sorted_ids=True)
+    cnt = stats[:, 0]
+    if with_stats:
         cnt_safe = torch.clamp(cnt, min=1.0)
-        means = psum[:-1] / cnt_safe[:, None]
-        covs = (osum[:-1] / cnt_safe[:, None, None]
+        means = stats[:, 1:4] / cnt_safe[:, None]
+        covs = (stats[:, 4:].reshape(V, 3, 3) / cnt_safe[:, None, None]
                 - means[:, :, None] * means[:, None, :])
     else:
         means = torch.zeros((V, 3), dtype=dtype, device=device)

@@ -16,13 +16,13 @@ from ..config.presets import PipelineConfig
 from ..models.delta_backend import DeltaBackend
 from ..models.prefiltering import PrefilteringStage
 from ..models.scan_matching_odometry import ScanMatchingOdometry
-from ..utils.device import resolve_device
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.profiling import StageTimer
 
 
 class Pipeline:
     def __init__(self, cfg: PipelineConfig, building_provider=None,
-                 base_T: Optional[np.ndarray] = None, device="cpu"):
+                 base_T: Optional[np.ndarray] = None, device=DEFAULT_DEVICE):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.prefiltering = PrefilteringStage(cfg.prefiltering, self.device)

@@ -2,6 +2,11 @@
 
 import torch
 
+# Where every stage runs unless the caller names another device: the card.
+# A host without one raises at construction (resolve_device); pass
+# device="cpu" to run the plain versions on the CPU.
+DEFAULT_DEVICE = "cuda"
+
 
 def resolve_device(device) -> torch.device:
     """The requested device, or an error: a CUDA request on a host without a

@@ -83,7 +83,7 @@ def test_keyframes_wait_for_the_first_gps_fix():
     """The reference's cloud_callback returns until the first GPS fix has
     made the building manager (delta_backend.py:354-356)."""
     be = DeltaBackend(DeltaBackendConfig(keyframe_delta_trans=0.5),
-                      StaticProvider(EMPTY))
+                      StaticProvider(EMPTY), device="cpu")
     c = _empty_cloud()
     odom = np.eye(4)
     for k in range(3):
@@ -99,7 +99,7 @@ def test_keyframes_wait_for_the_first_gps_fix():
 
 
 def test_gps_without_a_provider_raises():
-    be = DeltaBackend(DeltaBackendConfig())
+    be = DeltaBackend(DeltaBackendConfig(), device="cpu")
     with pytest.raises(ValueError, match="provider"):
         be.gps_callback(0.0, *GPS0)
 
@@ -114,7 +114,7 @@ def test_flush_gps_queue_priors_match_reference():
     ref = RBackend(rdelta, RStatic(EMPTY))
     port = DeltaBackend(config_from_reference_fields(dataclasses.asdict(rdelta),
                                                      DeltaBackendConfig),
-                        StaticProvider(EMPTY))
+                        StaticProvider(EMPTY), device="cpu")
     fixes = [(0.3 * k, GPS0[0] + 1e-5 * k, GPS0[1] + 2e-5 * k) for k in range(6)]
     for be in (ref, port):
         for f in fixes:
@@ -157,7 +157,7 @@ def test_projection_nmea_and_osm_parse_match_reference():
 
 
 def test_nmea_callback_sets_the_origin():
-    be = DeltaBackend(DeltaBackendConfig(), StaticProvider(EMPTY))
+    be = DeltaBackend(DeltaBackendConfig(), StaticProvider(EMPTY), device="cpu")
     be.nmea_callback(0.0, "$GPRMC,123519,A,4807.038,N,01131.000,E,022.4,084.4,"
                           "230394,003.1,W*6A")
     assert be.scale == pytest.approx(np.cos(np.deg2rad(48 + 7.038 / 60)))
@@ -172,11 +172,11 @@ def test_buildings_in_range_become_buildings():
     mgr = BuildingManager(StaticProvider(world.osm_xml()),
                           projection.mercator_from_gps(*world.origin_gps, 0.0,
                                                        scale=1.0), 1.0,
-                          synchronous=True)
+                          synchronous=True, device="cpu")
     got = mgr.get_buildings(*world.origin_gps)
     assert got and all(isinstance(b, Building) and b.node_id is None for b in got)
     assert all(b.lines.mask.any() and b.cloud.mask.any() for b in got)
-    empty = BuildingManager(StaticProvider(EMPTY), np.zeros(3), 1.0)
+    empty = BuildingManager(StaticProvider(EMPTY), np.zeros(3), 1.0, device="cpu")
     assert empty.get_buildings(*GPS0) == []
 
 
@@ -185,7 +185,7 @@ def test_buildings_in_range_become_buildings():
 def test_edge_ids_stay_unique_after_remove_edge():
     """Edge ids are monotonic (graph/se2_graph.py:145-156): removing an edge
     never lets a later edge reuse a live id."""
-    ref, port = RBuilder(), SE2GraphBuilder()
+    ref, port = RBuilder(), SE2GraphBuilder(device="cpu")
     for b in (ref, port):
         for k in range(4):
             b.add_vertex([float(k), 0.0, 0.0])
@@ -202,7 +202,7 @@ def test_finish_runs_a_final_step():
     stopping on an empty result with an empty queue (runner.py:299-306)."""
     pre, delta = _small_delta_reference()
     cfg = p_get_preset("delta")
-    pipe = Pipeline(cfg, building_provider=StaticProvider(EMPTY))
+    pipe = Pipeline(cfg, building_provider=StaticProvider(EMPTY), device="cpu")
     calls = []
     results = [{"loops": 0}, {"loops": 1}, {}]
 
@@ -339,7 +339,7 @@ def _drive(frames, gts, clouds, enable_loops, port):
     if port:
         be = DeltaBackend(config_from_reference_fields(dataclasses.asdict(delta),
                                                        DeltaBackendConfig),
-                          StaticProvider(EMPTY))
+                          StaticProvider(EMPTY), device="cpu")
     else:
         be = RBackend(delta, RStatic(EMPTY))
     rng = np.random.default_rng(3)

@@ -55,7 +55,7 @@ def _drive(world, frames, gts, clouds, port):
     if port:
         be = DeltaBackend(config_from_reference_fields(dataclasses.asdict(delta),
                                                        DeltaBackendConfig),
-                          StaticProvider(world.osm_xml()))
+                          StaticProvider(world.osm_xml()), device="cpu")
         be.scanmatcher.sampler = JaxSampler()
     else:
         be = RBackend(delta, RStatic(world.osm_xml()))

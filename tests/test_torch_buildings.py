@@ -2,6 +2,8 @@
 matrices, the pose graph with building vertices, the map export helpers)
 against the JAX package's, on the same numpy inputs."""
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -48,7 +50,8 @@ def _managers(xml):
                                                      scale=scale))
     out = []
     for Mgr, Prov, Builder in ((RManager, RStatic, RBuilder),
-                               (BuildingManager, StaticProvider, SE2GraphBuilder)):
+                               (partial(BuildingManager, device="cpu"), StaticProvider,
+                                partial(SE2GraphBuilder, device="cpu"))):
         g = Builder()
         mgr = Mgr(Prov(xml), origin, scale,
                   graph_add_vertex=g.add_vertex,
@@ -195,7 +198,8 @@ def test_graph_with_building_vertices_matches_reference():
     from test_torch_graph import _assert_same_solve
 
     (rb, re_, kfs, bld, gt), (pb, pe, _, _, _) = (_building_graph(RBuilder),
-                                                  _building_graph(SE2GraphBuilder))
+                                                  _building_graph(partial(SE2GraphBuilder,
+                                                                          device="cpu")))
     for b in (rb, pb):
         b.to_arrays(chain_first=True, e_capacity=8)
     for b, e in ((rb, re_), (pb, pe)):              # a de-overlap round's edge swap

@@ -65,7 +65,8 @@ def line_matcher_case():
     world = make_city_world(seed=0)
     pose = np.array([-40.0, 0.5, 0.0])
     pre = get_preset("delta").prefiltering
-    flat = PrefilteringStage(pre).process(raycast_scan(world, pose, seed=0)).filtered2d
+    flat = PrefilteringStage(pre, device="cpu").process(
+        raycast_scan(world, pose, seed=0)).filtered2d
     flat = (flat.points.numpy(), flat.mask.numpy())
     cfg = get_preset("delta").delta.scanmatcher
     u = np.random.default_rng(0).random((cfg.max_lines, cfg.n_hypotheses, 2)).astype(np.float32)
@@ -135,3 +136,31 @@ def test_line_matcher_on_card_is_deterministic(cuda_device):
     assert first["ransac.mask"].sum() >= 3
     for k in first:
         np.testing.assert_array_equal(second[k], first[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_voxel_sums_on_card_are_repeatable(cuda_device):
+    """voxel_downsample at the prefilter's 0.1 m and build_voxel_hash at the
+    registration's 1 m (with the cell statistics and the dense index) of one
+    full-capacity raycast scan, five runs each: every output bitwise equal.
+    The per-cell sums reduce each run of sorted points in order
+    (ops/segment.py); no float atomics decide their rounding."""
+    from delta_graph_slam_tpu_torch.config import get_preset
+    from delta_graph_slam_tpu_torch.io.kitti import make_city_world
+    from delta_graph_slam_tpu_torch.io.lidar_sim import raycast_scan
+    from delta_graph_slam_tpu_torch.ops import voxel
+
+    pre = get_preset("delta").prefiltering
+    scan = raycast_scan(make_city_world(seed=0), np.array([-40.0, 0.5, 0.0]), seed=0)
+    cloud = make_cloud(scan, capacity=pre.raw_capacity, device=cuda_device)
+    runs = []
+    for _ in range(5):
+        ds = voxel.voxel_downsample(cloud, pre.downsample_resolution,
+                                    capacity_out=pre.out_capacity)
+        vh = voxel.build_voxel_hash(ds, 1.0, 8192, dense_index=True)
+        runs.append([ds.points, ds.mask, vh.counts, vh.means, vh.covs, vh.keys,
+                     vh.starts, vh.dense_slot])
+    assert int(runs[0][1].sum()) > 20000 and int((runs[0][2] > 0).sum()) > 1000
+    for run in runs[1:]:
+        for k, (a, b) in enumerate(zip(run, runs[0])):
+            assert torch.equal(a, b), k

@@ -408,7 +408,7 @@ def test_chain_reaches_host_f64_optimum():
 # ---------------------------------------------------------------- builder
 
 def test_to_arrays_reuses_unchanged_tables():
-    b = SE2GraphBuilder()
+    b = SE2GraphBuilder(device="cpu")
     b.add_vertex([0, 0, 0], fixed=True)
     b.add_vertex([1, 0, 0])
     b.add_se2_edge(0, 1, [1, 0, 0], np.eye(3))
@@ -436,7 +436,7 @@ def test_g2o_round_trip_with_reference(tmp_path):
     rb.add_prior_xy(4, [1.0, 2.0], np.eye(2) * 3.0, kernel="Cauchy", delta=2.0)
     rb.add_prior_yaw(6, 0.25, 7.0)
     r_save_g2o(rb, tmp_path / "ref.g2o")
-    pb = load_g2o(tmp_path / "ref.g2o")
+    pb = load_g2o(tmp_path / "ref.g2o", device="cpu")
     save_g2o(pb, tmp_path / "port.g2o")
     assert (tmp_path / "port.g2o").read_text() == (tmp_path / "ref.g2o").read_text()
     assert ((tmp_path / "port.g2o.kernels").read_text()
@@ -453,7 +453,7 @@ def test_g2o_round_trip_with_reference(tmp_path):
 def test_npz_round_trip(tmp_path):
     pb = builder_from_reference(_chain_first_graph())
     save_npz(pb, tmp_path / "g.npz")
-    back = load_npz(tmp_path / "g.npz")
+    back = load_npz(tmp_path / "g.npz", device="cpu")
     assert len(back.poses) == len(pb.poses) and back.fixed == pb.fixed
     for a, b in zip(back.edges, pb.edges):
         assert (a["type"], a["i"], a["j"], a["level"], a["kernel"], a["delta"]) == (

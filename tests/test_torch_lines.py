@@ -344,7 +344,7 @@ def _square_pair(t, th=0.0, cap=8):
 def test_align_global_and_local_on_squares_match_reference():
     """tests/test_lines.py:153-180."""
     cfg = test_cfg()
-    rsm, psm = RL.LineBasedScanmatcher(cfg), PL.LineBasedScanmatcher(port_cfg(cfg))
+    rsm, psm = RL.LineBasedScanmatcher(cfg), PL.LineBasedScanmatcher(port_cfg(cfg), "cpu")
     (rt, pt), (rs, ps) = _square_pair(np.array([0.8, -0.5]), np.deg2rad(10))
     ref = rsm.align_global(rs, rt, constrain_angle=True, merge_targets=False)
     got = psm.align_global(ps, pt, constrain_angle=True, merge_targets=False)
@@ -378,7 +378,7 @@ def test_align_global_on_a_keyframe_matches_reference(flat_scan, constrain_angle
     world, pose, flat = flat_scan
     cfg = small_scanmatcher_reference()
     rsm = RL.LineBasedScanmatcher(cfg)
-    psm = PL.LineBasedScanmatcher(port_cfg(cfg), sampler=JaxSampler())
+    psm = PL.LineBasedScanmatcher(port_cfg(cfg), "cpu", sampler=JaxSampler())
     rt, pt = _city_targets(world, pose + [0.5, -0.3, 0.03], cfg.max_target_lines)
     ref = rsm.align_global(r_ops.make_cloud(*flat), rt, constrain_angle=constrain_angle,
                            max_range=3.5)
@@ -400,7 +400,7 @@ def test_align_local_batch_matches_reference():
     """Building outlines against scan lines, one batch of pairs with their
     frame transforms; an all-masked pair returns an exact identity."""
     cfg = test_cfg()
-    rsm, psm = RL.LineBasedScanmatcher(cfg), PL.LineBasedScanmatcher(port_cfg(cfg))
+    rsm, psm = RL.LineBasedScanmatcher(cfg), PL.LineBasedScanmatcher(port_cfg(cfg), "cpu")
     rng = np.random.default_rng(10)
     src_r, src_p, tgt_r, tgt_p, Ts, Tt = [], [], [], [], [], []
     for k in range(4):
@@ -439,7 +439,7 @@ def test_align_overlapped_batch_matches_reference():
     """tests/test_lines.py:182-222: the batch against the reference's batch
     and the per-pair align_overlapped_buildings of both packages."""
     cfg = test_cfg()
-    rsm, psm = RL.LineBasedScanmatcher(cfg), PL.LineBasedScanmatcher(port_cfg(cfg))
+    rsm, psm = RL.LineBasedScanmatcher(cfg), PL.LineBasedScanmatcher(port_cfg(cfg), "cpu")
     A, B, C = (both_lines(*square(*c), 8) for c in ((0, 0), (8.0, 0), (1.0, 7.0)))
     pa, pb, pc = np.zeros(3), np.array([8.0, 0.0, 0.0]), np.array([1.0, 7.0, 0.15])
     out = {}

@@ -23,6 +23,7 @@ from delta_graph_slam_tpu_torch.ops import cloud as P
 from delta_graph_slam_tpu_torch.ops import knn as P_knn
 from delta_graph_slam_tpu_torch.ops import normals as P_normals
 from delta_graph_slam_tpu_torch.ops import outliers as P_outliers
+from delta_graph_slam_tpu_torch.ops import segment as P_segment
 from delta_graph_slam_tpu_torch.ops import voxel as P_voxel
 from delta_graph_slam_tpu_torch.ops import voxel_knn as P_vknn
 from delta_graph_slam_tpu_torch.register import covariance as P_cov
@@ -85,7 +86,7 @@ def _pallas(q, qm, t, tm):
 
 
 @pytest.mark.parametrize("case", ["tiles", "ragged", "all_invalid_targets",
-                                  "exclude_self"])
+                                  "exclude_self", "single_query", "ties"])
 def test_nn_1_matches_reference(case):
     q, qm, t, tm = _nn_case(case)
     excl = case == "exclude_self"
@@ -107,6 +108,56 @@ def test_nn_1_matches_reference(case):
         if fin.any():
             # index agreement > 99% on valid queries (near-ties may differ)
             assert (i_p[fin] == i_r[fin]).mean() > 0.99
+        if case == "ties":  # exact distances: the first of the equal copies
+            np.testing.assert_array_equal(i_p, i_r)
+
+
+def _segment_case(kind):
+    """(vals, sorted ids with dump slot n, n) of one segment-sum case."""
+    rng = np.random.default_rng(3)
+    if kind == "voxel_runs":      # runs of 1-40 points, a long dump run
+        runs = rng.integers(1, 40, 700)
+        ids = np.repeat(np.arange(len(runs)), runs)
+        n = 600                   # runs beyond n overflow into the dump
+        ids = np.concatenate([np.minimum(ids, n), np.full(5000, n)])
+        vals = rng.normal(0, 30, (len(ids), 13))
+    elif kind == "empty_cells":   # every other cell empty, 1-D values
+        ids = np.sort(rng.choice(np.arange(0, 2000, 2), 5000))
+        n = 2001
+        vals = rng.normal(0, 30, len(ids))
+    else:                         # nothing valid: everything in the dump
+        n = 64
+        ids = np.full(300, n)
+        vals = rng.normal(0, 30, (300, 3))
+    return torch.from_numpy(vals.astype(np.float32)), torch.from_numpy(ids), n
+
+
+@pytest.mark.parametrize("kind", ["voxel_runs", "empty_cells", "all_dump"])
+def test_sorted_segment_sum_equals_index_add_bitwise(kind):
+    """The run-wise sum of ops/segment.py adds each run in order: on the CPU
+    its bits are those of index_add_ into n + 1 slots, the dump dropped."""
+    vals, ids, n = _segment_case(kind)
+    want = torch.zeros((n + 1,) + vals.shape[1:]).index_add_(0, ids, vals)[:-1]
+    got = P_segment.segment_sum(vals, ids, n, sorted_ids=True)
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_unsorted_segment_sum_equals_index_add_bitwise():
+    """The sort-based sum of the graph solve, on shuffled ids and under
+    deterministic() as the solve calls it: the same bits as index_add_ on
+    the CPU, and the switch restored when the block ends."""
+    vals, ids, n = _segment_case("voxel_runs")
+    keep = ids < n
+    vals, ids = vals[keep], ids[keep]
+    perm = torch.from_numpy(np.random.default_rng(4).permutation(len(ids)))
+    vals, ids = vals[perm], ids[perm]
+    before = torch.are_deterministic_algorithms_enabled()
+    with P_segment.deterministic():
+        assert torch.are_deterministic_algorithms_enabled()
+        got = P_segment.segment_sum(vals, ids, n)
+    assert torch.are_deterministic_algorithms_enabled() == before
+    want = torch.zeros((n,) + vals.shape[1:]).index_add_(0, ids, vals)
+    assert torch.equal(got, want)
 
 
 def test_knn_radius_count_match_reference():

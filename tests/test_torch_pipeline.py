@@ -137,7 +137,8 @@ def test_pipeline_finish_and_timing():
     cfg = _small(p_get_preset)
     cfg = dataclasses.replace(cfg, delta=dataclasses.replace(
         cfg.delta, keyframe_delta_trans=0.5, max_keyframes_per_update=1))
-    pipe = PPipeline(cfg, building_provider=PStaticProvider("<osm></osm>"))
+    pipe = PPipeline(cfg, building_provider=PStaticProvider("<osm></osm>"),
+                     device="cpu")
     for fr in frames:
         pipe.on_gps(fr.stamp, *fr.gps)
         pipe.on_points(fr.stamp, fr.points)
@@ -160,6 +161,44 @@ def test_cuda_request_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         PPipeline(p_get_preset("delta"), device="cuda")
+
+
+def _default_device_constructors():
+    from delta_graph_slam_tpu_torch.buildings import BuildingManager
+    from delta_graph_slam_tpu_torch.graph import SE2GraphBuilder
+    from delta_graph_slam_tpu_torch.lines import LineBasedScanmatcher
+    from delta_graph_slam_tpu_torch.models.delta_backend import DeltaBackend
+    from delta_graph_slam_tpu_torch.models.prefiltering import PrefilteringStage
+    from delta_graph_slam_tpu_torch.models.scan_matching_odometry import (
+        ScanMatchingOdometry,
+    )
+
+    cfg = p_get_preset("delta")
+    return {
+        "Pipeline": lambda: PPipeline(cfg, building_provider=PStaticProvider("<osm></osm>")),
+        "PrefilteringStage": lambda: PrefilteringStage(cfg.prefiltering),
+        "ScanMatchingOdometry": lambda: ScanMatchingOdometry(cfg.odometry),
+        "DeltaBackend": lambda: DeltaBackend(cfg.delta, PStaticProvider("<osm></osm>")),
+        "BuildingManager": lambda: BuildingManager(PStaticProvider("<osm></osm>"),
+                                                   np.zeros(3), 1.0),
+        "LineBasedScanmatcher": lambda: LineBasedScanmatcher(cfg.delta.scanmatcher),
+        "SE2GraphBuilder": lambda: SE2GraphBuilder(),
+    }
+
+
+@pytest.mark.parametrize("name", ["Pipeline", "PrefilteringStage",
+                                  "ScanMatchingOdometry", "DeltaBackend",
+                                  "BuildingManager", "LineBasedScanmatcher",
+                                  "SE2GraphBuilder"])
+def test_entry_points_default_to_the_card(monkeypatch, name):
+    """Every stage runs on the card unless the caller names the CPU: with
+    no device given and no card, construction raises."""
+    from delta_graph_slam_tpu_torch.utils.device import DEFAULT_DEVICE
+
+    assert DEFAULT_DEVICE == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        _default_device_constructors()[name]()
 
 
 def test_config_from_reference_fields():

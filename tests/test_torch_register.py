@@ -68,7 +68,7 @@ def filtered(frames):
 
 
 def test_prefiltering_matches_reference(frames, filtered):
-    stage = PStage(_small(p_get_preset)[0])
+    stage = PStage(_small(p_get_preset)[0], device="cpu")
     for fr, ref in zip(frames, filtered):
         out = stage.process(fr.points, base_T=np.eye(4))
         for (rp, rm), c in zip(ref, (out.filtered3d, out.filtered2d)):
@@ -147,10 +147,10 @@ def test_odometry_state_round_trip(filtered, tmp_path):
     _, reg = _small(p_get_preset)
     cfg = dataclasses.replace(p_get_preset("delta").odometry, registration=reg)
     clouds = [make_cloud(p, m) for (p, m), _ in filtered]
-    a = ScanMatchingOdometry(cfg)
+    a = ScanMatchingOdometry(cfg, device="cpu")
     a.matching(0.0, clouds[0])
     a.save_state(tmp_path / "odo.npz")
-    b = ScanMatchingOdometry(cfg)
+    b = ScanMatchingOdometry(cfg, device="cpu")
     b.load_state(tmp_path / "odo.npz", capacity=clouds[0].capacity)
     fa, fb = a.matching(0.1, clouds[1]), b.matching(0.1, clouds[1])
     assert fa.converged and fb.converged and fa.iterations == fb.iterations
@@ -166,8 +166,8 @@ def test_unported_methods_raise():
             PReg(cfg)
     pre, _ = _small(p_get_preset)
     with pytest.raises(NotImplementedError):
-        PStage(dataclasses.replace(pre, neighbor_method="dense"))
+        PStage(dataclasses.replace(pre, neighbor_method="dense"), device="cpu")
     with pytest.raises(NotImplementedError):
-        PStage(dataclasses.replace(pre, deskewing=True))
+        PStage(dataclasses.replace(pre, deskewing=True), device="cpu")
     with pytest.raises(NotImplementedError):
         p_get_preset("hdl_400")
