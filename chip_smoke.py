@@ -46,7 +46,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
      files; the drive again on the same frames, whose keyframe poses,
      odometry, estimated_odom, chi2 per cycle and ATE must be bitwise
      equal to the first; the same frames without buildings are printed
-     beside it.
+     beside it;
+  9. SE3 graph solve: the 4096-node hdl graph of bench.py (two laps, Huber
+     loops every 100 nodes, one floor-plane hub with an se3plane edge every
+     4th keyframe, one xyz prior), solved by optimize_se3 (chain backend:
+     BCR + hub elimination, float64) on the card twice (bitwise-equal
+     state, chi2 and iteration count) and held against a float64 robust LM
+     on the host (scipy SuperLU): the card's chi2 must not exceed 1.02 x
+     the host's; one chain_hub_solve step against a float64 dense solve of
+     the same system; ms and kernel launches per LM iteration;
+ 10. hdl drive: Pipeline(get_preset('hdl_400')) over phase 8's frames (GPS
+     fed, which hdl_400 leaves off), twice: floor coefficients on >= 90 %
+     of frames, the floor-plane vertex, >= 1 se3plane edge a keyframe, se3
+     odometry edges = keyframes - 1 (+ the anchor edge), ATE <= 1.0 m,
+     finite poses, nn1 launched, map.pcd written, graph.g2o read back with
+     the same vertex and edge counts; whether the two drives' keyframe
+     poses and chi2 are bitwise equal is printed and recorded; then 60
+     frames through hdl_imu with identity orientation and gravity-only
+     acceleration: quat and vec edges >= keyframes - 1.
 The line before the last is the kernel report, the last line the result.
 With --out, a JSON file with every measurement goes into DIR.
 """
@@ -72,6 +89,8 @@ GRAPH_NODES = 4096
 LAP_FRAMES = 120
 CITY_WARMUP = 10
 CITY_FRAMES = 240
+SE3_LM_ITERS = 128        # bench.py:1028
+IMU_FRAMES = 60
 
 
 def fail(msg):
@@ -824,19 +843,25 @@ def drive_record(backend, field):
             for k in backend.keyframes]
 
 
-def run_buildings(report):
-    import tempfile
-
+def city_frames():
+    """bench.py:45-60's city drive: (world, frames, ground truth re-anchored
+    at the first frame as bench.py:80-95)."""
     from delta_graph_slam_tpu_torch.io.lidar_sim import raycast_city_sequence
-    from delta_graph_slam_tpu_torch.io.pcd import load_pcd
-    from delta_graph_slam_tpu_torch.ops import nn_kernel
 
     t0 = time.perf_counter()
     world, frames = raycast_city_sequence(n_frames=CITY_WARMUP + CITY_FRAMES, speed=3.0,
                                           gps_noise_std=0.5, gps_walk_std=0.15)
-    gts = rel_gt(frames)          # re-anchored as bench.py:80-95
     print(f"generated {len(frames)} frames in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    return world, frames, rel_gt(frames)
+
+
+def run_buildings(report, world, frames, gts):
+    import tempfile
+
+    from delta_graph_slam_tpu_torch.io.pcd import load_pcd
+    from delta_graph_slam_tpu_torch.ops import nn_kernel
+
     nn_kernel.launches = 0
     pipe, cycles, wall = city_drive(world, frames, gts)
     launches = nn_kernel.launches
@@ -917,6 +942,645 @@ def run_buildings(report):
     return launches
 
 
+# ---------------------------------------------------------- SE3 graph solve
+# float64 numpy twins of the SE3 edge math, independent of the port
+# (bench.py:755-953), for the graph's construction and the host oracle
+
+def _hat(v):
+    H = np.zeros((len(v), 3, 3))
+    H[:, 0, 1], H[:, 0, 2] = -v[:, 2], v[:, 1]
+    H[:, 1, 0], H[:, 1, 2] = v[:, 2], -v[:, 0]
+    H[:, 2, 0], H[:, 2, 1] = -v[:, 1], v[:, 0]
+    return H
+
+
+def _q_to_R(q):
+    w, x, y, z = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    R = np.empty((len(q), 3, 3))
+    R[:, 0] = np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], 1)
+    R[:, 1] = np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], 1)
+    R[:, 2] = np.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], 1)
+    return R
+
+
+def _R_to_q(R):
+    """Batched rotation -> quaternion (wxyz), w >= 0 (bench.py:779-809)."""
+    q = np.empty((len(R), 4))
+    t = np.einsum("eii->e", R)
+    c0 = t > 0
+    m = np.argmax(np.stack([R[:, 0, 0], R[:, 1, 1], R[:, 2, 2]], 1), axis=1)
+    s = np.sqrt(np.maximum(t[c0] + 1.0, 1e-12)) * 2
+    q[c0] = np.stack([0.25 * s, (R[c0, 2, 1] - R[c0, 1, 2]) / s,
+                      (R[c0, 0, 2] - R[c0, 2, 0]) / s,
+                      (R[c0, 1, 0] - R[c0, 0, 1]) / s], 1)
+    for i in range(3):
+        j, k = (i + 1) % 3, (i + 2) % 3
+        sel = (~c0) & (m == i)
+        if not sel.any():
+            continue
+        s = np.sqrt(np.maximum(1.0 + R[sel, i, i] - R[sel, j, j] - R[sel, k, k],
+                               1e-12)) * 2
+        q[sel, 0] = (R[sel, k, j] - R[sel, j, k]) / s
+        q[sel, 1 + i] = 0.25 * s
+        q[sel, 1 + j] = (R[sel, j, i] + R[sel, i, j]) / s
+        q[sel, 1 + k] = (R[sel, k, i] + R[sel, i, k]) / s
+    q[q[:, 0] < 0] *= -1.0
+    return q
+
+
+def _se3_exp_np(d):
+    """Batched se3 exp, d (E,6) = [rho, phi] -> (R (E,3,3), t (E,3))."""
+    rho, phi = d[:, :3], d[:, 3:]
+    th = np.maximum(np.linalg.norm(phi, axis=1), 1e-12)[:, None, None]
+    H = _hat(phi / th[:, :, 0])
+    eye = np.broadcast_to(np.eye(3), H.shape)
+    R = eye + np.sin(th) * H + (1 - np.cos(th)) * (H @ H)
+    V = eye + ((1 - np.cos(th)) / th) * H + ((th - np.sin(th)) / th) * (H @ H)
+    small = th[:, 0, 0] < 1e-7
+    R[small] = np.eye(3) + _hat(phi[small])
+    V[small] = np.eye(3) + 0.5 * _hat(phi[small])
+    return R, (V @ rho[:, :, None])[:, :, 0]
+
+
+def _pose7_oplus_np(p, d):
+    """Right-multiplicative pose update, the quaternion renormalized."""
+    R = _q_to_R(p[:, 3:7])
+    Re, te = _se3_exp_np(d)
+    q = _R_to_q(R @ Re)
+    return np.concatenate([p[:, :3] + (R @ te[:, :, None])[:, :, 0],
+                           q / np.linalg.norm(q, axis=1, keepdims=True)], 1)
+
+
+def _plane_azel(n):
+    xy2 = n[:, 0] ** 2 + n[:, 1] ** 2
+    safe = xy2 > 1e-20
+    az = np.where(safe, np.arctan2(np.where(safe, n[:, 1], 0.0),
+                                   np.where(safe, n[:, 0], 1.0)), 0.0)
+    el = np.where(safe, np.arctan2(n[:, 2], np.sqrt(np.maximum(xy2, 1e-30))),
+                  np.where(n[:, 2] >= 0, np.pi / 2, -np.pi / 2))
+    return az, el
+
+
+def _plane_rotation_np(n):
+    az, el = _plane_azel(n)
+    ca, sa, ce, se = np.cos(az), np.sin(az), np.cos(el), np.sin(el)
+    R = np.empty((len(n), 3, 3))
+    R[:, 0] = np.stack([ca * ce, -sa, -ca * se], 1)
+    R[:, 1] = np.stack([sa * ce, ca, -sa * se], 1)
+    R[:, 2] = np.stack([se, np.zeros_like(ca), ce], 1)
+    return R
+
+
+def _plane_oplus_np(c, d):
+    s, cc = np.sin(d[:, 1]), np.cos(d[:, 1])
+    n_local = np.stack([cc * np.cos(d[:, 0]), cc * np.sin(d[:, 0]), s], 1)
+    n_new = (_plane_rotation_np(c[:, :3]) @ n_local[:, :, None])[:, :, 0]
+    out = np.concatenate([n_new, (c[:, 3] - d[:, 2])[:, None]], 1)
+    return out / np.maximum(np.linalg.norm(out[:, :3], axis=1, keepdims=True), 1e-12)
+
+
+def _err_se3_plane_np(poses, plane, meas):
+    """(T^-1 plane).ominus(meas) over edges: poses (E,7), plane (E,4), meas (E,4)."""
+    RT = np.swapaxes(_q_to_R(poses[:, 3:7]), 1, 2)
+    n2 = (RT @ plane[:, :3, None])[:, :, 0]
+    tinv = -(RT @ poses[:, :3, None])[:, :, 0]
+    w2 = plane[:, 3] - np.sum(tinv * n2, axis=1)
+    nm = (np.swapaxes(_plane_rotation_np(n2), 1, 2) @ meas[:, :3, None])[:, :, 0]
+    az, el = _plane_azel(nm)
+    return np.stack([az, el, (-w2) - (-meas[:, 3])], 1)
+
+
+def _se3_host_linearize(x, ei, ej, meas):
+    """EdgeSE3 residual and analytic Jacobians (right-multiplicative oplus),
+    float64 numpy (bench.py:900-928)."""
+    pi, pj = x[ei], x[ej]
+    RiT = np.swapaxes(_q_to_R(pi[:, 3:7]), 1, 2)
+    RzT = np.swapaxes(_q_to_R(meas[:, 3:7]), 1, 2)
+    trel = (RiT @ (pj[:, :3] - pi[:, :3])[:, :, None])[:, :, 0]
+    Rrel = RiT @ _q_to_R(pj[:, 3:7])
+    td = (RzT @ (trel - meas[:, :3])[:, :, None])[:, :, 0]
+    Rd = RzT @ Rrel
+    q = _R_to_q(Rd)
+    Q = 0.5 * (q[:, 0][:, None, None] * np.eye(3) + _hat(q[:, 1:4]))
+    Ji = np.zeros((len(ei), 6, 6))
+    Ji[:, :3, :3] = -RzT
+    Ji[:, :3, 3:] = RzT @ _hat(trel)
+    Ji[:, 3:, 3:] = -(Q @ np.swapaxes(Rrel, 1, 2))
+    Jj = np.zeros((len(ei), 6, 6))
+    Jj[:, :3, :3] = Rd
+    Jj[:, 3:, 3:] = Q
+    return np.concatenate([td, q[:, 1:4]], 1), Ji, Jj
+
+
+def _se3_plane_host_linearize(x, plane, pe, meas, h=1e-6):
+    """EdgeSE3Plane residual and NUMERIC Jacobians (central differences in
+    the vertices' local charts), as g2o takes them for its custom edges
+    (bench.py:931-953)."""
+    poses = x[pe]
+    pl = np.broadcast_to(plane, (len(pe), 4))
+    r = _err_se3_plane_np(poses, pl, meas)
+    Jp = np.zeros((len(pe), 3, 6))
+    for d in range(6):
+        dv = np.zeros((len(pe), 6))
+        dv[:, d] = h
+        Jp[:, :, d] = (_err_se3_plane_np(_pose7_oplus_np(poses, dv), pl, meas)
+                       - _err_se3_plane_np(_pose7_oplus_np(poses, -dv), pl, meas)) / (2 * h)
+    Jl = np.zeros((len(pe), 3, 3))
+    for d in range(3):
+        dv = np.zeros((len(pe), 3))
+        dv[:, d] = h
+        Jl[:, :, d] = (_err_se3_plane_np(poses, _plane_oplus_np(pl, dv), meas)
+                       - _err_se3_plane_np(poses, _plane_oplus_np(pl, -dv), meas)) / (2 * h)
+    return r, Jp, Jl
+
+
+SE3_INFO = np.diag([100.0] * 3 + [400.0] * 3)
+PLANE_INFO = np.diag([1.0, 1.0, 10.0])
+
+
+def bench_graph_se3(n_nodes, rng_seed=7, plane_every=4, n_laps=2):
+    """The hdl graph of bench.py:956-1025 in numpy: ``n_laps`` laps of a 3-D
+    circle, noisy SE3 odometry (0.01 m, 0.002 rad in all 6 dof), vertices
+    initialized by integrating it, Huber loop closures every 100 nodes
+    between laps, the z = 0 floor seen from every ``plane_every``-th
+    keyframe, one xyz prior on vertex 1.
+
+    Returns (init (n,7), se3 edges [(i, j, meas7, kernel)], plane edges
+    [(i, coeffs4)], (vertex, xyz) of the prior, gt (n,7))."""
+    rng = np.random.default_rng(rng_seed)
+    lap = n_nodes // n_laps
+    th = 2.0 * np.pi / lap * np.arange(n_nodes)
+    radius = lap / (2 * np.pi)
+    gt = np.stack([radius * np.sin(th), radius * (1 - np.cos(th)), 0 * th,
+                   np.cos(th / 2), 0 * th, 0 * th, np.sin(th / 2)], 1)
+
+    def rel7(a, b):
+        Ra, Rb = _q_to_R(a[None, 3:7])[0], _q_to_R(b[None, 3:7])[0]
+        return np.concatenate([Ra.T @ (b[:3] - a[:3]), _R_to_q((Ra.T @ Rb)[None])[0]])
+
+    def noisy(m, s_t, s_r):
+        d = np.concatenate([rng.normal(0, s_t, 3), rng.normal(0, s_r, 3)])
+        return _pose7_oplus_np(m[None], d[None])[0]
+
+    meas = [noisy(rel7(gt[k], gt[k + 1]), 0.01, 0.002) for k in range(n_nodes - 1)]
+    init = np.zeros((n_nodes, 7))
+    init[0] = gt[0]
+    for k in range(1, n_nodes):
+        Ra = _q_to_R(init[None, k - 1, 3:7])[0]
+        init[k, :3] = init[k - 1, :3] + Ra @ meas[k - 1][:3]
+        q = _R_to_q((Ra @ _q_to_R(meas[k - 1][None, 3:7])[0])[None])[0]
+        init[k, 3:7] = q / np.linalg.norm(q)
+    edges = [(k, k + 1, meas[k], "NONE") for k in range(n_nodes - 1)]
+    for left in range(0, n_nodes - lap, lap):
+        for k in range(left, left + lap - 1, 100):
+            edges.append((k, k + lap, noisy(rel7(gt[k], gt[k + lap]), 0.005, 0.001),
+                          "Huber"))
+    planes = []
+    for k in range(0, n_nodes, plane_every):
+        R = _q_to_R(gt[None, k, 3:7])[0]
+        n_local = R.T @ np.array([0.0, 0.0, 1.0])
+        # transform_plane(T^-1, plane): n' = R^T n, w' = w - (-R^T t).n'
+        w_local = 0.0 - float(n_local @ (R.T @ (-gt[k, :3])))
+        planes.append((k, np.concatenate([n_local, [w_local]])))
+    return init, edges, planes, (1, gt[1, :3]), gt
+
+
+def se3_graph_builder(graph, device):
+    """The port's SE3GraphBuilder of a bench_graph_se3 (vertex 0 fixed, one
+    floor-plane vertex)."""
+    from delta_graph_slam_tpu_torch.graph import SE3GraphBuilder
+
+    init, edges, planes, (pv, pxyz), _ = graph
+    b = SE3GraphBuilder(device=device)
+    for k, p in enumerate(init):
+        b.add_se3_node(p, fixed=(k == 0))
+    for i, j, m, kern in edges:
+        b.add_se3_edge(i, j, m, SE3_INFO, kernel=kern, delta=1.0)
+    p0 = b.add_plane_node([0.0, 0.0, 1.0, 0.0])
+    for k, coeffs in planes:
+        b.add_se3_plane_edge(k, p0, coeffs, PLANE_INFO)
+    b.add_se3_prior_xyz_edge(pv, pxyz, np.eye(3) * 10)
+    return b
+
+
+def host_lm_se3(builder, max_iters):
+    """Float64 robust LM on the host for the SE3 graph, the oracle of
+    bench.py:1178 (bench_pose_graph_se3_cpu): analytic EdgeSE3 Jacobians,
+    numeric EdgeSE3Plane ones, Huber on flagged edges, g2o's gain-ratio
+    lambda schedule from 1e-5 * 400, scipy SuperLU, vertex 0 clamped, the
+    plane's 3 dims at the tail. Returns (seconds, iterations, chi2, poses)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+
+    def table(etype, *keys):
+        es = [e for e in builder.edges if e["type"] == etype]
+        return [np.asarray([e[k] for e in es]) for k in keys]
+
+    ei, ej, meas, infos, kern, delta = table("se3", "i", "j", "meas", "info",
+                                             "kernel", "delta")
+    huber = kern == 1
+    pe, pmeas, pinfo = table("se3plane", "i", "meas", "info")
+    xi, xmeas, xinfo = table("xyz", "i", "meas", "info")
+    x = np.stack(builder.poses).astype(np.float64)
+    plane = np.asarray(builder.planes[0], np.float64)
+    V = len(x)
+    NP = 6 * V + 3
+    tail = 6 * V + np.arange(3)
+
+    def idx(rows, cols):
+        """Flat (row, col) indices of blocks at dof offsets rows (E,r) x cols (E,c)."""
+        shape = (len(rows), rows.shape[1], cols.shape[1])
+        return (np.broadcast_to(rows[:, :, None], shape).ravel(),
+                np.broadcast_to(cols[:, None, :], shape).ravel())
+
+    def dof(v, n=6):
+        return 6 * v[:, None] + np.arange(n)
+
+    tails = np.broadcast_to(tail, (len(pe), 3))
+    pattern = [idx(dof(ei), dof(ei)), idx(dof(ei), dof(ej)), idx(dof(ej), dof(ei)),
+               idx(dof(ej), dof(ej)), idx(dof(pe), dof(pe)), idx(dof(pe), tails),
+               idx(tails, dof(pe)), idx(tails, tails), idx(dof(xi, 3), dof(xi, 3)),
+               (np.arange(6), np.arange(6))]
+    rows = np.concatenate([p[0] for p in pattern])
+    cols = np.concatenate([p[1] for p in pattern])
+
+    def robust(r):
+        e2 = np.einsum("ea,eab,eb->e", r, infos, r)
+        out = huber & (e2 > delta ** 2)
+        sq = np.sqrt(np.maximum(e2, 1e-30))
+        return (np.where(out, 2 * delta * sq - delta ** 2, e2).sum(),
+                np.where(out, delta / sq, 1.0))
+
+    def total_chi2(x, plane):
+        rho = robust(_se3_host_linearize(x, ei, ej, meas)[0])[0]
+        rp = _err_se3_plane_np(x[pe], np.broadcast_to(plane, (len(pe), 4)), pmeas)
+        rx = x[xi, :3] - xmeas
+        return (rho + np.einsum("ea,eab,eb->e", rp, pinfo, rp).sum()
+                + np.einsum("ea,eab,eb->e", rx, xinfo, rx).sum())
+
+    t0 = time.perf_counter()
+    lam, nu, it = 1e-5 * 400.0, 2.0, 0
+    chi2 = total_chi2(x, plane)
+    while it < max_iters:
+        r, Ji, Jj = _se3_host_linearize(x, ei, ej, meas)
+        Wf = infos * robust(r)[1][:, None, None]
+        rp, Jp, Jl = _se3_plane_host_linearize(x, plane, pe, pmeas)
+        rx = x[xi, :3] - xmeas
+        Jx = _q_to_R(x[xi, 3:7])        # d t / d rho = R (right-multiplicative)
+        JiT_W = np.einsum("eba,ebc->eac", Ji, Wf)
+        JjT_W = np.einsum("eba,ebc->eac", Jj, Wf)
+        JpT_W = np.einsum("eba,ebc->eac", Jp, pinfo)
+        JlT_W = np.einsum("eba,ebc->eac", Jl, pinfo)
+        JxT_W = np.einsum("eba,ebc->eac", Jx, xinfo)
+        vals = np.concatenate([m.ravel() for m in (
+            JiT_W @ Ji, JiT_W @ Jj, JjT_W @ Ji, JjT_W @ Jj, JpT_W @ Jp,
+            JpT_W @ Jl, JlT_W @ Jp, JlT_W @ Jl, JxT_W @ Jx, np.full(6, 1e12))])
+        bvec = np.zeros(NP)
+        for at, g in ((dof(ei), np.einsum("eab,eb->ea", JiT_W, r)),
+                      (dof(ej), np.einsum("eab,eb->ea", JjT_W, r)),
+                      (dof(pe), np.einsum("eab,eb->ea", JpT_W, rp)),
+                      (tails, np.einsum("eab,eb->ea", JlT_W, rp)),
+                      (dof(xi, 3), np.einsum("eab,eb->ea", JxT_W, rx))):
+            np.add.at(bvec, at.ravel(), g.ravel())
+        H = sp.coo_matrix((vals, (rows, cols)), shape=(NP, NP)).tocsc()
+        # minimum degree on A^T + A: COLAMD's order fills in around the
+        # plane's dense rows and takes several times as long
+        dx = spl.splu(H + sp.identity(NP, format="csc") * lam,
+                      permc_spec="MMD_AT_PLUS_A").solve(-bvec)
+        xt = _pose7_oplus_np(x, dx[:6 * V].reshape(V, 6))
+        plt = _plane_oplus_np(plane[None], dx[6 * V:][None])[0]
+        chi2_t = total_chi2(xt, plt)
+        rho_g = (chi2 - chi2_t) / max(abs(np.sum(dx * (lam * dx - bvec))), 1e-30)
+        if chi2_t < chi2:
+            x, plane, chi2 = xt, plt, chi2_t
+            lam *= max(1.0 / 3.0, 1.0 - (2 * rho_g - 1) ** 3)
+            nu = 2.0
+        else:
+            lam *= nu
+            nu *= 2.0
+        it += 1
+        if lam > 1e12:
+            break
+    return time.perf_counter() - t0, it, float(chi2), x
+
+
+def hub_step_error(g):
+    """Relative error of one chain_hub_solve step against a float64 dense
+    solve of the same damped system: the graph's first linearization at
+    LM's first lambda."""
+    import torch
+
+    from delta_graph_slam_tpu_torch.graph import se3_solver
+    from delta_graph_slam_tpu_torch.graph.hub_solve import chain_hub_solve
+    from delta_graph_slam_tpu_torch.graph.lm_core import (
+        dense_solve, diag_blocks, gradient)
+    from delta_graph_slam_tpu_torch.ops.segment import deterministic
+
+    g64 = se3_solver._to_f64(g)
+    free = se3_solver._free_mask(g64, 0)
+    N = free.shape[0]
+    with deterministic():
+        sys, _ = se3_solver._linearize(g64, se3_solver._state0(g64), 0)
+        b = gradient(sys, N)
+        dg = torch.diagonal(diag_blocks(sys, N), dim1=-2, dim2=-1)
+        lam = 1e-5 * (dg.abs() * free).max()
+        n_hub = g.planes.shape[0] + g.points.shape[0]
+        x, dropped = chain_hub_solve(
+            sys, -b, free, lam, N, n_hub=n_hub, K_cap=64,
+            coup_cap=g.se3_plane.i.shape[0] + g.se3_point.i.shape[0])
+        ref = dense_solve(sys, -b, free, lam)
+    err = float((x - ref).norm() / ref.norm())
+    return err, int(dropped), float(lam), N * free.shape[1]
+
+
+def lm_launches_per_iteration(solve, cfg):
+    """CUDA kernels per LM iteration from torch.profiler: the difference of
+    two solves capped at 2 and 4 iterations (early exits off), halved.
+    None when the profiler shows no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for cap in (2, 4):
+        c = dataclasses.replace(cfg, max_iterations=cap, chi2_rel_tol=0.0, dx_tol=0.0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            solve(c)
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA))
+    return (counts[1] - counts[0]) / 2 if counts[0] > 0 else None
+
+
+def se3_graph_solve(report, n_nodes=GRAPH_NODES, device="cuda"):
+    """The hdl bench graph on the card against the host oracle."""
+    import torch
+
+    from delta_graph_slam_tpu_torch.graph import SolverConfig, optimize_se3
+
+    graph = bench_graph_se3(n_nodes)
+    gt = graph[-1]
+    b = se3_graph_builder(graph, device)
+    g = b.to_arrays(dtype=np.float32)
+    n_off = b.count_offchain()
+    cfg = SolverConfig(backend="chain", max_iterations=SE3_LM_ITERS)
+
+    def solve(c):
+        out = optimize_se3(g, level=0, config=c, n_offchain=n_off)
+        torch.cuda.synchronize()
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (s1, st1) = solve(cfg)
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    (s2, st2) = solve(cfg)
+    chi2 = [float(s.chi2_final) for s in (st1, st2)]
+    same_state = all(bool(torch.equal(a, c)) for a, c in zip(s1, s2))
+    poses = s1[0].cpu().numpy().astype(np.float64)
+    ate = float(np.mean(np.linalg.norm(poses[:n_nodes, :3] - gt[:, :3], axis=1)))
+    dropped = int(st1.n_offchain_dropped)
+    print(f"card: chi2 {float(st1.chi2_initial)!r} -> {chi2[0]!r} / {chi2[1]!r} after "
+          f"{st1.iterations} / {st2.iterations} iterations (bitwise equal chi2 "
+          f"{chi2[0] == chi2[1]}, state {same_state}), ATE {ate:.4f} m, "
+          f"n_offchain_dropped {dropped}, off-chain edges {n_off}, first solve "
+          f"{first_s:.2f} s, peak device memory {peak / 2**20:.1f} MiB", flush=True)
+    check(chi2[0] == chi2[1] and st1.iterations == st2.iterations and same_state,
+          f"two SE3 solves of the same graph differ: chi2 {chi2}, iterations "
+          f"{st1.iterations}/{st2.iterations}, state equal {same_state}")
+    check(dropped == 0, f"the SE3 solve dropped {dropped} off-chain/coupling edges")
+    check(np.isfinite(poses).all(), "the SE3 solve returned non-finite poses")
+
+    step_err, step_drop, step_lam, n_dof = hub_step_error(g)
+    print(f"one chain_hub_solve step vs a float64 dense solve ({n_dof} dof, lambda "
+          f"{step_lam:.4g}): relative error {step_err:.3e} (limit 1e-5), dropped "
+          f"{step_drop}", flush=True)
+    check(step_err < 1e-5 and step_drop == 0,
+          f"hub solve step error {step_err} (dropped {step_drop})")
+
+    # ms/iteration by phase 6's marginal protocol, best of 2
+    times = {}
+    for cap in (4, 12):
+        cfg_c = dataclasses.replace(cfg, max_iterations=cap, chi2_rel_tol=0.0,
+                                    dx_tol=0.0)
+        best, its = float("inf"), 0
+        for _ in range(2):
+            t0 = time.perf_counter()
+            _, st = solve(cfg_c)
+            best = min(best, time.perf_counter() - t0)
+            its = st.iterations
+        times[cap] = (best, its)
+    (t1, i1), (t2, i2) = times[4], times[12]
+    ms_iter = (t2 - t1) * 1000.0 / max(i2 - i1, 1)
+    launches = lm_launches_per_iteration(solve, cfg)
+
+    th, ih, chi2_h, xh = host_lm_se3(se3_graph_builder(graph, "cpu"), 40)
+    ate_h = float(np.mean(np.linalg.norm(xh[:, :3] - gt[:, :3], axis=1)))
+    print(f"host float64 LM (scipy SuperLU): chi2 {chi2_h!r} after {ih} iterations "
+          f"in {th:.1f} s, ATE {ate_h:.4f} m", flush=True)
+    print(f"SE3 LM at {n_nodes} nodes: {ms_iter:.3f} ms/iteration (marginal "
+          f"{i1}->{i2} iterations), CUDA kernels per iteration "
+          f"{'not measured' if launches is None else launches}, host oracle "
+          f"{th * 1000.0 / max(ih, 1):.1f} ms/iteration", flush=True)
+    report["se3_graph"] = {
+        "nodes": n_nodes, "offchain": n_off, "chi2_initial": float(st1.chi2_initial),
+        "chi2": chi2[0], "iterations": st1.iterations, "ate_m": ate,
+        "state_bit_identical": same_state, "n_offchain_dropped": dropped,
+        "first_solve_s": first_s, "peak_mem_bytes": peak, "ms_per_iter": ms_iter,
+        "marginal": times, "kernels_per_iter": launches,
+        "hub_step_rel_err": step_err, "hub_step_lambda": step_lam,
+        "host_chi2": chi2_h, "host_iterations": ih, "host_ate_m": ate_h, "host_s": th,
+    }
+    check(np.isfinite(chi2[0]) and chi2[0] <= 1.02 * chi2_h,
+          f"card SE3 chi2 {chi2[0]} above 1.02 x the host's {chi2_h}")
+
+
+# ---------------------------------------------------------------- hdl drive
+
+def hdl_drive(preset, frames, gts, warmup, imu=False, device="cuda"):
+    """The hdl pipeline single-threaded as bench.py:221-267 drives it:
+    ``warmup`` frames and two update steps, the timers reset, then the timed
+    frames (GPS before every scan; with ``imu`` an identity orientation and
+    gravity-only acceleration too) and finish(). Returns (pipeline,
+    non-empty per-cycle stats, frames with floor coefficients, wall seconds
+    of the timed frames)."""
+    import torch
+
+    from delta_graph_slam_tpu_torch.config import get_preset
+    from delta_graph_slam_tpu_torch.pipeline.runner import Pipeline
+
+    pipe = Pipeline(get_preset(preset), device=device)
+    cycles, floors = [], [0]
+    step, floor_cb = pipe.backend.optimization_step, pipe.backend.floor_coeffs_callback
+
+    def counted_step():
+        out = step()
+        cycles.append(out)
+        return out
+
+    def counted_floor(stamp, coeffs):
+        floors[0] += coeffs is not None
+        return floor_cb(stamp, coeffs)
+
+    pipe.backend.optimization_step = counted_step
+    pipe.backend.floor_coeffs_callback = counted_floor
+
+    def feed(fr, gt):
+        pipe.on_gps(fr.stamp, *fr.gps)
+        if imu:     # level flight: tests/test_pipeline_e2e.py:186-191
+            pipe.on_imu(fr.stamp, [1.0, 0.0, 0.0, 0.0],
+                        linear_acceleration=[0.0, 0.0, 9.81])
+        pipe.on_points(fr.stamp, fr.points, gt_pose=gt)
+
+    for fr, gt in zip(frames[:warmup], gts):
+        feed(fr, gt)
+    pipe.backend.optimization_step()
+    pipe.backend.optimization_step()
+    pipe.timer.reset()
+    pipe.backend.timer.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for fr, gt in zip(frames[warmup:], gts[warmup:]):
+        feed(fr, gt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pipe.finish()
+    return pipe, [c for c in cycles if c], floors[0], wall
+
+
+def edge_counts(builder):
+    """Edges of a graph builder by type."""
+    out = {}
+    for e in builder.edges:
+        out[e["type"]] = out.get(e["type"], 0) + 1
+    return out
+
+
+def run_hdl(report, frames, gts, device="cuda"):
+    import tempfile
+
+    import torch
+
+    from delta_graph_slam_tpu_torch.graph import load_g2o_se3
+    from delta_graph_slam_tpu_torch.io.pcd import load_pcd
+    from delta_graph_slam_tpu_torch.ops import nn_kernel
+
+    n_timed = len(frames) - CITY_WARMUP
+    print(f"float32 matmul precision {torch.get_float32_matmul_precision()!r}, "
+          f"torch.backends.cuda.matmul.allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    nn_kernel.launches = 0
+    pipe, cycles, n_floor, wall = hdl_drive("hdl_400", frames, gts, CITY_WARMUP,
+                                            device=device)
+    launches = nn_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    be = pipe.backend
+    m = pipe.evaluate()
+    counts = edge_counts(be.graph)
+    n_kf = len(be.keyframes)
+    nodes = [k.node_id for k in be.keyframes]
+    consecutive = {frozenset(p) for p in zip(nodes[1:], nodes[:-1])}
+    odo = sum(1 for e in be.graph.edges if e["type"] == "se3"
+              and frozenset((e["i"], e["j"])) in consecutive)
+    loops = counts.get("se3", 0) - odo - (be.anchor_node is not None)
+    t = pipe.timing_summary()
+
+    def per_frame(k):
+        return t[k]["total_s"] * 1000.0 / n_timed if k in t else float("nan")
+
+    def per_call(k):
+        return t[k]["mean_ms"] if k in t else float("nan")
+
+    iters = [c["lm_iters"] for c in cycles]
+    chi2 = [c["chi2"] for c in cycles]
+    poses = np.stack(be.graph.poses)
+    print(f"{n_timed} frames in {wall:.3f} s: {n_timed / wall:.3f} frames/s; keyframes "
+          f"{n_kf}, frames with floor coefficients {n_floor} of {len(frames)}, edges "
+          f"{counts} ({odo} odometry, {loops} loops), cycles {len(cycles)}, nn1 "
+          f"launches {launches}, peak device memory {peak / 2**20:.1f} MiB", flush=True)
+    print("ms per frame: prefiltering {:.3f}, odometry {:.3f}, floor_detection {:.3f}; "
+          "ms per call: optimization_step {:.3f}, optimize {:.3f}, loop_detection "
+          "{:.3f}".format(per_frame("prefiltering"), per_frame("odometry"),
+                          per_frame("floor_detection"), per_call("optimization_step"),
+                          per_call("backend.optimize"),
+                          per_call("backend.loop_detection")), flush=True)
+    print(f"LM iterations per cycle {iters}", flush=True)
+    print(f"chi2 per cycle {chi2}", flush=True)
+    print("ATE {ATE_mean:.4f} m (std {ATE_std:.4f}), t-RPE {t_RPE_mean:.4f} m, "
+          "r-RPE {r_RPE_mean:.5f} rad".format(**m), flush=True)
+
+    with tempfile.TemporaryDirectory() as d:
+        saved = pipe.save_map(d)
+        n_map = len(load_pcd(Path(d) / "map.pcd")) if (Path(d) / "map.pcd").exists() else 0
+        dumped = be.dump_graph(d)
+        back = load_g2o_se3(Path(d) / "graph.g2o", device="cpu")
+    back_counts = (len(back.poses), len(back.planes), edge_counts(back))
+    want_counts = (len(be.graph.poses), len(be.graph.planes),
+                   {k: v for k, v in counts.items() if k in ("se3", "se3plane")})
+    print(f"save_map: {saved}, map.pcd points {n_map}; dump_graph: {dumped}, "
+          f"graph.g2o read back with (poses, planes, edges) {back_counts}", flush=True)
+
+    # the same frames again: is the drive bit-repeatable?
+    pipe_2, cycles_2, _, wall_2 = hdl_drive("hdl_400", frames, gts, CITY_WARMUP,
+                                            device=device)
+    poses_2 = np.stack(pipe_2.backend.graph.poses)
+    same = {
+        "poses": poses.shape == poses_2.shape and bool(np.array_equal(poses, poses_2)),
+        "chi2": chi2 == [c["chi2"] for c in cycles_2],
+        "lm_iters": iters == [c["lm_iters"] for c in cycles_2],
+    }
+    gap = (float(np.abs(poses - poses_2).max()) if poses.shape == poses_2.shape
+           else float("nan"))
+    print(f"the hdl drive twice: bitwise equal {same}, largest pose gap {gap:.3e} "
+          f"({n_timed / wall_2:.3f} frames/s the second time)", flush=True)
+
+    nn_kernel.launches = 0
+    pipe_i, cycles_i, _, wall_i = hdl_drive("hdl_imu", frames[:IMU_FRAMES],
+                                            gts[:IMU_FRAMES], 0, imu=True,
+                                            device=device)
+    launches_i = nn_kernel.launches
+    counts_i = edge_counts(pipe_i.backend.graph)
+    n_kf_i = len(pipe_i.backend.keyframes)
+    finite_i = bool(np.isfinite(pipe_i.backend.poses2d).all())
+    print(f"hdl_imu, {IMU_FRAMES} frames: {IMU_FRAMES / wall_i:.3f} frames/s, "
+          f"keyframes {n_kf_i}, edges {counts_i}, LM iterations per cycle "
+          f"{[c['lm_iters'] for c in cycles_i]}, poses finite {finite_i}", flush=True)
+
+    report["hdl"] = {
+        "frames": n_timed, "warmup_frames": CITY_WARMUP, "wall_s": wall,
+        "frames_per_s": n_timed / wall, "keyframes": n_kf, "floor_frames": n_floor,
+        "edges": counts, "odometry_edges": odo, "loops": loops, "cycles": cycles,
+        "nn1_launches": launches, "peak_mem_bytes": peak, "timing": t, "metrics": m,
+        "map_points": n_map, "g2o_read_back": [back_counts[0], back_counts[1],
+                                               back_counts[2]],
+        "repeat_bitwise_equal": same, "repeat_max_pose_gap": gap,
+        "repeat_frames_per_s": n_timed / wall_2,
+        "imu": {"frames": IMU_FRAMES, "frames_per_s": IMU_FRAMES / wall_i,
+                "keyframes": n_kf_i, "edges": counts_i, "cycles": cycles_i,
+                "nn1_launches": launches_i},
+    }
+    check(n_floor >= 0.9 * len(frames),
+          f"floor coefficients on {n_floor} of {len(frames)} frames, need 90 %")
+    check(be.floor_plane_node is not None, "no floor-plane vertex")
+    check(counts.get("se3plane", 0) >= n_kf,
+          f"{counts.get('se3plane', 0)} se3plane edges for {n_kf} keyframes")
+    check(odo == n_kf - 1, f"{odo} se3 odometry edges for {n_kf} keyframes")
+    check(be.anchor_node is not None, "no anchor vertex")
+    check(cycles and all(np.isfinite(c) for c in chi2), f"chi2 not finite: {chi2}")
+    check(np.isfinite(poses).all(), "non-finite keyframe poses")
+    check(m["ATE_mean"] <= 1.0, f"hdl ATE {m['ATE_mean']} m > 1.0 m")
+    check(launches > 0, "the hdl drive launched no nn1 kernel")
+    check(launches >= odo, f"nn1 launched {launches} times for {odo} odometry edges")
+    check(saved and n_map > 0, f"save_map wrote {n_map} points")
+    check(dumped and back_counts == want_counts,
+          f"graph.g2o read back as {back_counts}, the graph holds {want_counts}")
+    check(counts_i.get("quat", 0) >= n_kf_i - 1 and counts_i.get("vec", 0) >= n_kf_i - 1,
+          f"hdl_imu: edges {counts_i} for {n_kf_i} keyframes")
+    check(n_kf_i >= 3 and finite_i, f"hdl_imu: {n_kf_i} keyframes, finite {finite_i}")
+    check(launches_i > 0, "the hdl_imu drive launched no nn1 kernel")
+    return launches + launches_i
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="directory for a JSON report")
@@ -983,7 +1647,17 @@ def main():
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
     t = phase(f"buildings: {CITY_FRAMES}-frame raycast city drive, delta preset")
-    launches += run_buildings(report)
+    world, city, city_gts = city_frames()
+    launches += run_buildings(report, world, city, city_gts)
+    print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
+
+    t = phase(f"SE3 graph solve: {GRAPH_NODES}-node hdl graph, chain + hub backend")
+    se3_graph_solve(report)
+    print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
+
+    t = phase(f"hdl drive: {CITY_FRAMES}-frame raycast city drive, hdl_400, then "
+              f"{IMU_FRAMES} frames of hdl_imu")
+    launches += run_hdl(report, city, city_gts)
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
     if args.out:

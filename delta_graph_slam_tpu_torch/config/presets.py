@@ -1,27 +1,33 @@
 """Pipeline presets mirroring the reference launch files.
 
-The ``delta`` preset carries the launch values of delta_graph_slam.launch
-(KITTI + buildings); the hdl presets raise until the SE3 path is ported.
+One typed config tree carries the rosparam surface of the five launch
+files: delta_graph_slam.launch (KITTI + buildings), hdl_graph_slam.launch
+and its _400/_501/_imu variants.
 """
 
 import dataclasses
 
 from ..lines.align import LineScanmatcherConfig
 from ..models.delta_backend import DeltaBackendConfig
+from ..models.floor_detection import FloorDetectionConfig
+from ..models.hdl_backend import HdlBackendConfig
 from ..models.prefiltering import PrefilteringConfig
 from ..models.scan_matching_odometry import OdometryConfig
 from ..pipeline.information_matrix import InformationMatrixCalculator
 from ..register.config import RegistrationConfig
-
-HDL_PRESETS = ("hdl", "hdl_400", "hdl_501", "hdl_imu")
-
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     name: str
     prefiltering: PrefilteringConfig
     odometry: OdometryConfig
-    delta: DeltaBackendConfig
+    floor: FloorDetectionConfig = None
+    delta: DeltaBackendConfig = None
+    hdl: HdlBackendConfig = None
+
+    @property
+    def backend(self):
+        return self.delta if self.delta is not None else self.hdl
 
 
 def _delta_preset() -> PipelineConfig:
@@ -84,12 +90,87 @@ def _delta_preset() -> PipelineConfig:
     )
 
 
-PRESETS = {"delta": _delta_preset}
+def _hdl_preset(name="hdl", **over) -> PipelineConfig:
+    """hdl_graph_slam.launch family (upstream SE3 pipeline).
+
+    Registration: every hdl launch file overrides the nodelet's NDT_OMP code
+    default to FAST_GICP with the tuning of the delta launch
+    (hdl_graph_slam_400.launch:59-68; "FAST_GICP(recommended)").
+    """
+    reg = RegistrationConfig(method="FAST_GICP", transformation_epsilon=0.1,
+                             maximum_iterations=64,
+                             max_correspondence_distance=2.0,
+                             correspondence_randomness=20, resolution=1.0)
+    floor = FloorDetectionConfig(
+        sensor_height=over.pop("sensor_height", 2.0),
+        height_clip_range=1.0, floor_pts_thresh=512,
+        floor_normal_thresh=10.0, use_normal_filtering=True,
+        normal_filter_thresh=20.0,
+    )
+    hdl = HdlBackendConfig(
+        registration=reg,
+        enable_floor=over.pop("enable_floor", True),
+        # every hdl launch defaults enable_gps to FALSE
+        # (hdl_graph_slam_400.launch:6); the GPS-dataset preset (hdl_501)
+        # opts in. On a loop-free odometry chain the global modes have zero
+        # stiffness, so even a weak absolute prior pins the trajectory's
+        # shape to the (noisy) GPS track.
+        enable_gps=over.pop("enable_gps", False),
+        enable_imu_acceleration=over.pop("enable_imu_acceleration", False),
+        enable_imu_orientation=over.pop("enable_imu_orientation", False),
+        # launch values for when GPS is enabled (..._400.launch:124-125)
+        gps_edge_stddev_xy=over.pop("gps_edge_stddev_xy", 20.0),
+        gps_edge_stddev_z=over.pop("gps_edge_stddev_z", 5.0),
+    )
+    return PipelineConfig(
+        name=name,
+        prefiltering=PrefilteringConfig(
+            # every hdl launch runs the RADIUS outlier filter (0.5 m / min 2;
+            # e.g. hdl_graph_slam_400.launch:36-41)
+            use_distance_filter=True,
+            distance_near_thresh=over.pop("distance_near_thresh", 0.1),
+            distance_far_thresh=100.0, downsample_method="VOXELGRID",
+            downsample_resolution=0.1,
+            outlier_removal_method=over.pop("outlier_removal_method",
+                                            "RADIUS"),
+            radius_radius=0.5, radius_min_neighbors=2,
+        ),
+        odometry=OdometryConfig(
+            # the hdl launch files override the nodelet's 0.25/0.15/1.0 code
+            # defaults (scan_matching_odometry_nodelet.cpp:73-75) to
+            # 1.0/1.0/10000 (hdl_graph_slam_400.launch:49-51); the code
+            # defaults swap the odometry keyframe EVERY frame at driving
+            # speed, a full target-model rebuild per scan
+            registration=reg, keyframe_delta_trans=1.0,
+            keyframe_delta_angle=1.0, keyframe_delta_time=10000.0,
+            transform_thresholding=False, downsample_method="NONE",
+        ),
+        floor=floor,
+        hdl=hdl,
+    )
+
+
+PRESETS = {
+    "delta": _delta_preset,
+    "hdl": lambda: _hdl_preset("hdl"),
+    # hdl_graph_slam_400.launch: outdoor HDL32e, floor constraint active
+    "hdl_400": lambda: _hdl_preset("hdl_400", sensor_height=2.0),
+    # hdl_graph_slam_501.launch: indoor + GPS/NMEA
+    "hdl_501": lambda: _hdl_preset(
+        "hdl_501", gps_edge_stddev_xy=20.0, enable_floor=True,
+        enable_gps=True,            # the GPS/NMEA dataset preset
+        distance_near_thresh=0.5,   # hdl_graph_slam_501.launch:31
+    ),
+    # hdl_graph_slam_imu.launch: gravity + orientation edges
+    "hdl_imu": lambda: _hdl_preset(
+        "hdl_imu", enable_imu_acceleration=True,
+        enable_imu_orientation=True,
+        distance_near_thresh=0.2,   # hdl_graph_slam_imu.launch:42
+    ),
+}
 
 
 def get_preset(name: str) -> PipelineConfig:
-    if name in HDL_PRESETS:
-        raise NotImplementedError(f"preset {name!r}: the hdl SE3 path is not ported")
     if name not in PRESETS:
         raise KeyError(f"unknown preset {name!r}; known: {sorted(PRESETS)}")
     return PRESETS[name]()

@@ -53,6 +53,23 @@ def transform_2d_to_3d_np(p):
     return T
 
 
+def quat_to_rot_np(q):
+    """Unit quaternions (...,4) [w,x,y,z] -> rotation matrices (...,3,3)."""
+    q = np.asarray(q, float)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    R = np.empty(q.shape[:-1] + (3, 3))
+    R[..., 0, 0] = 1 - 2 * (y * y + z * z)
+    R[..., 0, 1] = 2 * (x * y - w * z)
+    R[..., 0, 2] = 2 * (x * z + w * y)
+    R[..., 1, 0] = 2 * (x * y + w * z)
+    R[..., 1, 1] = 1 - 2 * (x * x + z * z)
+    R[..., 1, 2] = 2 * (y * z - w * x)
+    R[..., 2, 0] = 2 * (x * z - w * y)
+    R[..., 2, 1] = 2 * (y * z + w * x)
+    R[..., 2, 2] = 1 - 2 * (x * x + y * y)
+    return R
+
+
 def _euler_xyz_np(R):
     """Eigen-range xyz extraction (matches geom.se3.euler_xyz_from_rot)."""
     r00, r01, r02 = R[0, 0], R[0, 1], R[0, 2]

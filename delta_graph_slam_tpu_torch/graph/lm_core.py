@@ -51,12 +51,19 @@ class SolverConfig:
     # [0..chain_layout-1] are the consecutive odometry edges. Set through
     # optimize_se2(..., n_chain=...)
     chain_layout: int = 0
-    # the fields below configure paths of the JAX package that this port
-    # does not have yet (the hub solve of the SE3 graph and the segmented
-    # SPIKE solve); they are kept so configs carry across, and a value
-    # that asks for those paths raises
+    # > 0 routes the chain backend through the hub-elimination solve
+    # (graph/hub_solve.py): the LAST chain_hubs vertices of the unified
+    # space are hub vertices (SE3 floor planes / landmarks), eliminated
+    # exactly through their small dense block; their couplings join the
+    # loop edges in one generalized Woodbury capacitance. optimize_se3 sets
+    # it for backend="chain"
     chain_hubs: int = 0
+    # capacity for pose<->hub coupling edges in the hub solve (one per
+    # keyframe with a floor in the hdl pipeline)
     chain_coupling_capacity: int = 4096
+    # the fields below configure a path of the JAX package that this port
+    # does not have (the segmented SPIKE solve); they are kept so configs
+    # carry across, and a value that asks for that path raises
     chain_segments: int = 0
     chain_mesh_axis: str = None
     chain_local_cols: int = 0
@@ -225,6 +232,14 @@ def dense_solve(sys: LinSys, b, free, lam):
     return x.reshape(N, D) * free
 
 
+def _all_finite(state):
+    """A 0-d bool tensor: every value of the state (a tensor or a tuple of
+    tensors) is finite."""
+    if isinstance(state, torch.Tensor):
+        return torch.isfinite(state).all()
+    return torch.stack([torch.isfinite(s).all() for s in state]).all()
+
+
 def lm_optimize(linearize_fn, chi2_fn, apply_fn, state0, free, cfg: SolverConfig,
                 n_edges_total=None):
     """Generic robust LM loop.
@@ -237,9 +252,6 @@ def lm_optimize(linearize_fn, chi2_fn, apply_fn, state0, free, cfg: SolverConfig
     initializeOptimization (graph_slam.cpp:338-346), so pass the unmasked
     count; None falls back to the level-active count.
     """
-    if cfg.backend == "chain" and cfg.chain_hubs > 0:
-        raise NotImplementedError(
-            "chain_hubs > 0 (graph/hub_solve.py, the SE3 path) is not ported")
     N = free.shape[0]
     dtype = free.dtype
     chi2_0, nact = chi2_fn(state0)
@@ -260,6 +272,14 @@ def lm_optimize(linearize_fn, chi2_fn, apply_fn, state0, free, cfg: SolverConfig
         b = gradient(sys, N, n_chain=n_chain)
         if cfg.backend == "dense":
             dx = dense_solve(sys, -b, free, lam)
+        elif cfg.backend == "chain" and cfg.chain_hubs > 0:
+            from .hub_solve import chain_hub_solve
+
+            dx, _ = chain_hub_solve(
+                sys, -b, free, lam, N, n_hub=cfg.chain_hubs,
+                K_cap=cfg.chain_offrank_capacity,
+                coup_cap=cfg.chain_coupling_capacity,
+            )
         elif cfg.backend == "chain":
             from .chain_solve import chain_solve
 
@@ -277,7 +297,7 @@ def lm_optimize(linearize_fn, chi2_fn, apply_fn, state0, free, cfg: SolverConfig
         denom = (dx * (lam * dx - b)).sum()
         rho = (chi2 - chi2_t) / torch.where(torch.abs(denom) < 1e-30,
                                             torch.full_like(denom, 1e-30), denom)
-        accept = (chi2_t < chi2) & torch.isfinite(trial).all()
+        accept = (chi2_t < chi2) & _all_finite(trial)
         chi2_n = torch.where(accept, chi2_t, chi2)
         lam_dec = lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
         lam = torch.where(accept, lam_dec, lam * nu).to(dtype)
@@ -294,7 +314,13 @@ def lm_optimize(linearize_fn, chi2_fn, apply_fn, state0, free, cfg: SolverConfig
         if took:
             state, sys = trial, sys_t
 
-    if cfg.backend == "chain":
+    if cfg.backend == "chain" and cfg.chain_hubs > 0:
+        from .hub_solve import hub_overflow
+
+        n_drop = hub_overflow(sys0, free, N, cfg.chain_hubs,
+                              cfg.chain_offrank_capacity,
+                              cfg.chain_coupling_capacity)
+    elif cfg.backend == "chain":
         from .chain_solve import offchain_overflow
 
         n_drop = offchain_overflow(sys0, free, cfg.chain_offrank_capacity)

@@ -12,6 +12,7 @@ import torch
 from .config.presets import PipelineConfig
 from .graph.robust import ROBUST_KERNELS
 from .graph.se2_graph import SE2GraphBuilder
+from .graph.se3_graph import SE3GraphBuilder
 from .ops.cloud import MaskedCloud, make_cloud
 
 
@@ -36,9 +37,9 @@ def config_from_reference_fields(fields: dict, cls=PipelineConfig):
     the reference's counterpart.
 
     Every field of ``cls`` must be present; nested configs are built
-    recursively, so the backend's solver, registration, line-matcher and
-    information-matrix settings carry across. Reference fields the port has
-    no counterpart for (the hdl backend and floor detection) are ignored.
+    recursively, so the backends' solver, registration, line-matcher,
+    information-matrix and floor-detection settings carry across; a nested
+    config the preset leaves out (``delta`` of an hdl preset) stays None.
     """
     kw = {}
     for f in dataclasses.fields(cls):
@@ -63,5 +64,23 @@ def builder_from_reference(ref, device="cpu") -> SE2GraphBuilder:
                     np.asarray(e["info"]), e["level"], ROBUST_KERNELS[e["kernel"]],
                     e["delta"])
         b.edges[-1]["id"] = e["id"]
+    b._next_edge_id = ref._next_edge_id
+    return b
+
+
+def se3_builder_from_reference(ref, device="cpu") -> SE3GraphBuilder:
+    """The port's SE3GraphBuilder holding the same graph as a reference
+    builder: poses, planes, points, fixed flags and the edge records (ids
+    and kernel ids included), with arrays as numpy in the reference
+    builder's dtype."""
+    b = SE3GraphBuilder(dtype=ref.dtype, device=device)
+    b.poses = [np.asarray(p, ref.dtype) for p in ref.poses]
+    b.planes = [np.asarray(p, ref.dtype) for p in ref.planes]
+    b.points = [np.asarray(p, ref.dtype) for p in ref.points]
+    b.fixed = list(ref.fixed)
+    b.plane_fixed = list(ref.plane_fixed)
+    b.point_fixed = list(ref.point_fixed)
+    b.edges = [{k: np.asarray(v) if k in ("meas", "info") else v
+                for k, v in e.items()} for e in ref.edges]
     b._next_edge_id = ref._next_edge_id
     return b

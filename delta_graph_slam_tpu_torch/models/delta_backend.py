@@ -20,8 +20,7 @@ to powers of two so that XLA reuses compiled programs, and padded slots
 change no result.
 
 Not in this slice: the threaded runner and its four locks (this backend is
-single-threaded), the IMU initial orientation, save_state/load_state and
-create_marker_array.
+single-threaded), save_state/load_state and create_marker_array.
 
 One divergence: the reference downloads OSM data from the public Overpass
 server when no building provider is given. This backend needs the provider
@@ -39,7 +38,8 @@ import torch
 
 from ..buildings.manager import BuildingManager
 from ..geom.host import (
-    se2_compose_np, se2_inverse_np, transform_2d_to_3d_np, transform_3d_to_2d_np,
+    quat_to_rot_np, se2_compose_np, se2_inverse_np, transform_2d_to_3d_np,
+    transform_3d_to_2d_np, yaw_from_rot_np,
 )
 from ..geom.projection import gps_from_mercator, mercator_from_gps, mercator_scale
 from ..graph import SE2GraphBuilder, SolverConfig, optimize_se2
@@ -222,6 +222,8 @@ class DeltaBackend:
         th = np.deg2rad(cfg.init_angle_deg)
         self.trans_odom2map = np.array([cfg.init_x, cfg.init_y, th])
         self.adjust_initial_orientation = not cfg.use_imu_for_initial_orientation
+        self.initial_orientation_yaw = 0.0
+        self._imu_seen = False
 
         self.origin: Optional[np.ndarray] = None
         self.scale: Optional[float] = None
@@ -283,6 +285,19 @@ class DeltaBackend:
 
     def navsat_callback(self, stamp, lat, lon, alt):
         self.gps_callback(stamp, lat, lon, alt)
+
+    def imu_callback(self, quat_wxyz):
+        """The first IMU message fixes the initial orientation (:388-421)."""
+        if self._imu_seen:
+            return
+        self._imu_seen = True
+        q = np.asarray(quat_wxyz, float)
+        yaw = float(yaw_from_rot_np(quat_to_rot_np(q / np.linalg.norm(q))))
+        self.initial_orientation_yaw = yaw
+        if self.cfg.use_imu_for_initial_orientation:
+            rot = np.array([0.0, 0.0, yaw])
+            self.trans_odom2map = se2_compose_np(rot, self.trans_odom2map)
+            self._update_anchor(rot)
 
     def _update_anchor(self, pose):
         if self.anchor_node is not None and self.keyframes:

@@ -74,3 +74,16 @@ def flatten_z(cloud: MaskedCloud) -> MaskedCloud:
     pts = cloud.points.clone()
     pts[:, 2] = 0.0
     return MaskedCloud(pts, cloud.mask)
+
+
+def plane_clip(cloud: MaskedCloud, plane, negative: bool = False) -> MaskedCloud:
+    """Keep points on one side of plane (a,b,c,d): sign of p.n + d.
+
+    Mirrors pcl::PlaneClipper3D usage in floor detection
+    (floor_detection_nodelet.cpp:189-204).
+    """
+    plane = torch.as_tensor(plane, dtype=cloud.points.dtype,
+                            device=cloud.points.device)
+    dist = cloud.points @ plane[:3] + plane[3]
+    keep = (dist < 0.0) if negative else (dist > 0.0)
+    return MaskedCloud(cloud.points, cloud.mask & keep)

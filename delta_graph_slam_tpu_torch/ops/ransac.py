@@ -1,15 +1,17 @@
-"""Many-hypothesis RANSAC line extraction.
+"""Many-hypothesis RANSAC plane and line estimators.
 
-Instead of PCL's sequential sample loop with early exit (line segmentation,
+Instead of PCL's sequential sample loop with early exit
+(pcl::RandomSampleConsensus in floor detection,
+floor_detection_nodelet.cpp:138-141, and line segmentation,
 line_based_scanmatcher.cpp:345-358), a fixed batch of hypotheses is drawn,
 scored all at once, and the best one taken (first index among equal vote
 counts). The inliers of each line are pruned to their largest cluster by
 1-D gap clustering on the line coordinate (DIVERGENCES.md §14).
 
-The samples come in as an argument: ``ransac_line`` takes a
-``(max_lines, n_hypotheses, 2)`` tensor of uniforms in [0, 1), so any
-random stream (a torch.Generator, or the JAX package's threefry draws
-replayed in a test) drives it. Everything stays on the cloud's device:
+The samples come in as an argument: ``ransac_plane`` takes
+``(n_hypotheses, 3)`` uniforms in [0, 1) and ``ransac_line``
+``(max_lines, n_hypotheses, 2)``, so any random stream (a torch.Generator,
+or the JAX package's threefry draws replayed in a test) drives them. Everything stays on the cloud's device:
 the ``max_lines`` iterations are masked and read nothing back to the host.
 """
 
@@ -41,6 +43,55 @@ def _sample_indices(u, count):
     """Random valid indices into a compacted cloud, from uniforms ``u``;
     the product is taken in ``u``'s own dtype, as the reference does."""
     return (u * torch.clamp(count, min=1).to(u.dtype)).to(torch.int64)
+
+
+class RansacResult(NamedTuple):
+    coeffs: torch.Tensor      # (4,) plane [a,b,c,d], unit normal
+    inliers: torch.Tensor     # (N,) bool
+    n_inliers: torch.Tensor   # () int64
+    ok: torch.Tensor          # () bool
+
+
+def ransac_plane(cloud: MaskedCloud, uniforms, dist_thresh: float = 0.1,
+                 min_inliers: int = 512) -> RansacResult:
+    """Plane RANSAC on a masked cloud from uniforms ``(n_hypotheses, 3)``.
+    coeffs = unit-normal [a,b,c,d].
+
+    The (N, H) point-to-plane product decides votes at ``dist_thresh``, so
+    it must run as a true float32 product: the floor stage calls this under
+    ``utils/device.py:strict_fp32_matmul``."""
+    pts, mask = cloud.points, cloud.mask
+    count = mask.sum()
+    order = torch.argsort((~mask).to(torch.uint8), stable=True)  # valid first
+    idx = order[_sample_indices(uniforms, count)]
+    p0, p1, p2 = pts[idx[:, 0]], pts[idx[:, 1]], pts[idx[:, 2]]
+    n = torch.linalg.cross(p1 - p0, p2 - p0)
+    nn = torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+    degenerate = nn[:, 0] < 1e-9
+    n = n / torch.clamp(nn, min=1e-12)
+    d = -(n * p0).sum(-1)                              # (H,)
+    dist = torch.abs(pts @ n.T + d[None, :])           # (N, H)
+    votes = ((dist < dist_thresh) & mask[:, None]).sum(0)
+    votes = torch.where(degenerate, -1, votes)
+    best = torch.argmax(votes)                         # the first maximum
+    coeffs = torch.cat([n[best], d[best][None]])
+    inl = mask & (torch.abs(pts @ coeffs[:3] + coeffs[3]) < dist_thresh)
+    n_inl = inl.sum()
+    return RansacResult(coeffs, inl, n_inl, n_inl >= min_inliers)
+
+
+def refine_plane(points, inliers, coeffs):
+    """Least-squares plane refit over inliers (smallest eigenvector of the
+    centered covariance), oriented as the input model."""
+    from .normals import smallest_eigvec_3x3
+
+    w = inliers.to(points.dtype)[:, None]
+    cnt = torch.clamp(w.sum(), min=1.0)
+    mean = (points * w).sum(0) / cnt
+    c = (points - mean) * w
+    n = smallest_eigvec_3x3(c.T @ c / cnt)
+    n = torch.where(torch.dot(n, coeffs[:3]) < 0, -n, n)
+    return torch.cat([n, -torch.dot(n, mean)[None]])
 
 
 def _point_line_dist2_2d(pts, a, dirn):

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.knn import nn_1
+from ..utils.device import strict_fp32_matmul
 
 
 def fitness_score(cloud1, cloud2, relpose, max_range=float("inf")):
@@ -31,7 +32,8 @@ def fitness_score(cloud1, cloud2, relpose, max_range=float("inf")):
     points2 = cloud2.points
     T = torch.as_tensor(np.asarray(relpose), dtype=points2.dtype,
                         device=points2.device)
-    moved = points2 @ T[:3, :3].T + T[:3, 3]
+    with strict_fp32_matmul():
+        moved = points2 @ T[:3, :3].T + T[:3, 3]
     d2, _ = nn_1(moved, cloud2.mask, cloud1.points, cloud1.mask)
     # reference quirk (information_matrix_calculator.cpp:96, PCL
     # getFitnessScore): the SQUARED NN distance is compared to the

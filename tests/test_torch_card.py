@@ -16,11 +16,74 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402  (numpy-only graph builders at the repo root)
 from delta_graph_slam_tpu_torch.graph import SolverConfig, optimize_se2  # noqa: E402
+from delta_graph_slam_tpu_torch.graph.hub_solve import chain_hub_solve  # noqa: E402
+from delta_graph_slam_tpu_torch.graph.lm_core import LinSys  # noqa: E402
 from delta_graph_slam_tpu_torch.lines import (  # noqa: E402
     LineBasedScanmatcher, make_lines, transform_lines,
 )
 from delta_graph_slam_tpu_torch.ops import ransac  # noqa: E402
 from delta_graph_slam_tpu_torch.ops.cloud import make_cloud  # noqa: E402
+from delta_graph_slam_tpu_torch.ops.segment import deterministic  # noqa: E402
+
+
+def hub_system(Vc=12, nh=2, D=6, seed=0):
+    """The system of tests/test_graph.py:582-614: a chain, one loop, five
+    pose<->hub couplings in both stored orientations, unary pose and hub
+    priors, a hub-hub edge, a dead row; the anchor fixed, hub 1 plane-like
+    (3 free dims)."""
+    rng = np.random.default_rng(seed)
+    N = Vc + nh
+    rows = []
+
+    def spd():
+        M = rng.normal(size=(D, D))
+        return (M @ M.T + D * np.eye(D)) * 0.1
+
+    def J():
+        return rng.normal(size=(D, D))
+
+    z = np.zeros((D, D))
+    for k in range(Vc - 1):
+        rows.append((k, k + 1, J(), J(), spd()))
+    rows.append((2, 9, J(), J(), spd()))
+    for p, h, revd in ((1, 0, False), (3, 0, True), (5, 0, False), (7, 1, True),
+                       (8, 1, False)):
+        rows.append((Vc + h, p, J(), J(), spd()) if revd else (p, Vc + h, J(), J(), spd()))
+    rows.append((4, 4, J(), z, spd()))
+    rows.append((Vc + 1, Vc + 1, J(), z, spd()))
+    rows.append((Vc, Vc + 1, J(), J(), spd()))
+    rows.append((0, 5, J(), J(), np.zeros((D, D))))
+    free = np.ones((N, D), np.float32)
+    free[0] = 0.0
+    free[Vc + 1, 3:] = 0.0
+    b = rng.normal(size=(N, D)).astype(np.float32)
+    return rows, free, b, N
+
+
+def hub_linsys(rows, device="cpu"):
+    def col(k, dt):
+        return torch.from_numpy(np.stack([np.asarray(r[k]) for r in rows]).astype(dt)).to(device)
+
+    return LinSys(col(0, np.int64), col(1, np.int64),
+                  torch.zeros((len(rows), 6), device=device),
+                  col(2, np.float32), col(3, np.float32), col(4, np.float32))
+
+
+def hub_dense_oracle(rows, b, free, lam, N, D=6):
+    """tests/test_graph.py:628-644: float64 dense solve with dense_solve's
+    masking, from the float32-rounded blocks."""
+    H = np.zeros((N * D, N * D))
+    for i, j, Ji, Jj, W in rows:
+        Ji, Jj, W = (x.astype(np.float32).astype(np.float64) for x in (Ji, Jj, W))
+        si, sj = slice(i * D, (i + 1) * D), slice(j * D, (j + 1) * D)
+        H[si, si] += Ji.T @ W @ Ji
+        H[sj, sj] += Jj.T @ W @ Jj
+        H[si, sj] += Ji.T @ W @ Jj
+        H[sj, si] += Jj.T @ W @ Ji
+    fm = free.reshape(-1).astype(np.float64)
+    H = H * fm[:, None] * fm[None, :] + np.diag(np.where(fm > 0, lam, 1.0))
+    x = np.linalg.solve(H, b.reshape(-1).astype(np.float64) * fm)
+    return x.reshape(N, D) * free
 
 
 @pytest.fixture
@@ -164,3 +227,49 @@ def test_voxel_sums_on_card_are_repeatable(cuda_device):
     for run in runs[1:]:
         for k, (a, b) in enumerate(zip(run, runs[0])):
             assert torch.equal(a, b), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lam", [1e-2, 1e-6])
+def test_hub_solve_on_card_matches_cpu(cuda_device, lam):
+    """chain_hub_solve on the chain + hub system of the CPU tests: the card
+    against the CPU and against the float64 dense oracle, 1e-9 relative
+    (float64 on both; the card's sums and products run in another order)."""
+    rows, free, b, N = hub_system()
+    out = {}
+    for dev in ("cpu", cuda_device):
+        with deterministic():
+            x, nd = chain_hub_solve(
+                hub_linsys(rows, dev), torch.from_numpy(b).double().to(dev),
+                torch.from_numpy(free).to(dev),
+                torch.tensor(lam, dtype=torch.float64, device=dev), N, n_hub=2,
+                K_cap=4, coup_cap=8)
+        assert int(nd) == 0
+        out[str(dev)] = x.cpu().numpy()
+    ref = hub_dense_oracle(rows, b, free, lam, N)
+    scale = np.linalg.norm(ref)
+    assert np.linalg.norm(out[str(cuda_device)] - out["cpu"]) / scale < 1e-9
+    assert np.linalg.norm(out[str(cuda_device)] - ref) / scale < 1e-9
+
+
+@pytest.mark.cuda
+def test_floor_detection_repeats_on_card(cuda_device):
+    """FloorDetectionStage.detect at the hdl presets' full capacity on one
+    prefiltered raycast scan, twice from fresh stages (the same generator
+    seed): a floor is found and the coefficients are bitwise equal."""
+    from delta_graph_slam_tpu_torch.config import get_preset
+    from delta_graph_slam_tpu_torch.io.kitti import make_city_world
+    from delta_graph_slam_tpu_torch.io.lidar_sim import raycast_scan
+    from delta_graph_slam_tpu_torch.models.floor_detection import FloorDetectionStage
+    from delta_graph_slam_tpu_torch.models.prefiltering import PrefilteringStage
+
+    cfg = get_preset("hdl_400")
+    assert (cfg.floor.capacity, cfg.floor.clip_capacity, cfg.floor.n_hypotheses) == (
+        32768, 8192, 512)
+    scan = raycast_scan(make_city_world(seed=0), np.array([-40.0, 0.5, 0.0]), seed=0)
+    cloud = PrefilteringStage(cfg.prefiltering, cuda_device).process(scan[:, :3]).filtered3d
+    runs = [FloorDetectionStage(cfg.floor, cuda_device).detect(cloud) for _ in range(2)]
+    assert runs[0] is not None and runs[1] is not None
+    assert runs[0].tobytes() == runs[1].tobytes()
+    # the sensor rides 1.8 m above a level road
+    assert runs[0][2] > 0.99 and abs(runs[0][3] - 1.8) < 0.1

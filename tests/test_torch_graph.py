@@ -467,6 +467,13 @@ def test_unported_solver_paths_raise():
     g = pb.to_arrays()
     with pytest.raises(NotImplementedError, match="SPIKE"):
         optimize_se2(g, config=SolverConfig(backend="chain", chain_segments=4))
-    with pytest.raises(NotImplementedError, match="hub"):
-        optimize_se2(g, config=dataclasses.replace(
-            SolverConfig(backend="chain"), chain_hubs=1))
+    # chain_hubs > 0 is ported (graph/hub_solve.py): with the ring's last
+    # vertex eliminated as a hub the solve lands where the dense one does
+    # (chi2 within 1e-9 relative, poses within 1e-8)
+    hub, hs = optimize_se2(g, config=dataclasses.replace(
+        SolverConfig(backend="chain"), chain_hubs=1))
+    dense, ds = optimize_se2(g, config=SolverConfig(backend="dense"))
+    assert int(hs.n_offchain_dropped) == 0
+    np.testing.assert_allclose(float(hs.chi2_final), float(ds.chi2_final),
+                               rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(hub.numpy(), dense.numpy(), atol=1e-8)

@@ -21,6 +21,7 @@ from delta_graph_slam_tpu.pipeline.information_matrix import (
 from delta_graph_slam_tpu.register import Registration as RReg
 from delta_graph_slam_tpu_torch.config import get_preset as p_get_preset
 from delta_graph_slam_tpu_torch.io.lidar_sim import raycast_city_sequence
+from delta_graph_slam_tpu_torch.models.hdl_backend import HdlBackendConfig
 from delta_graph_slam_tpu_torch.models.prefiltering import PrefilteringStage as PStage
 from delta_graph_slam_tpu_torch.models.scan_matching_odometry import (
     ScanMatchingOdometry,
@@ -169,5 +170,10 @@ def test_unported_methods_raise():
         PStage(dataclasses.replace(pre, neighbor_method="dense"), device="cpu")
     with pytest.raises(NotImplementedError):
         PStage(dataclasses.replace(pre, deskewing=True), device="cpu")
+    # the hdl presets are ported; their nodelet-default NDT registration and
+    # an unknown preset name still raise
+    assert p_get_preset("hdl_400").hdl is not None
     with pytest.raises(NotImplementedError):
-        p_get_preset("hdl_400")
+        PReg(HdlBackendConfig().registration)
+    with pytest.raises(KeyError):
+        p_get_preset("hdl_999")
