@@ -63,7 +63,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the same vertex and edge counts; whether the two drives' keyframe
      poses and chi2 are bitwise equal is printed and recorded; then 60
      frames through hdl_imu with identity orientation and gravity-only
-     acceleration: quat and vec edges >= keyframes - 1.
+     acceleration: quat and vec edges >= keyframes - 1;
+ 11. registration heads: phase 4's 40 frames with the odometry
+     registration set to REGISTRATION_PRESETS['hdl'] (NDT_OMP, resolution
+     1.0, DIRECT7) and to FAST_VGICP at resolution 1.0, each twice: >= 90 %
+     of frames converged and the two runs bitwise equal; drift <= 5 % of
+     the path for FAST_VGICP, while NDT_OMP's drift is printed and not held
+     (on this drive the reference's NDT does not track frame to keyframe:
+     tests/test_torch_voxel_heads.py); odometry ms and GN iterations a frame
+     beside FAST_GICP's from phase 4; then hdl_400 with HdlBackendConfig()'s
+     NDT_OMP backend registration over phase 7's lap: >= 1 loop candidate
+     aligned through NDT, candidates and loops accepted printed;
+ 12. threaded runner: phase 8's building drive and phase 10's hdl_400
+     drive through Pipeline(..., threaded=True): no worker error, finish()
+     returns, keyframe stamps and the odometry of every frame bitwise equal
+     to the serial drive of the same phase (the largest odometry gap
+     printed), ATE <= 1.0 m; frames/s to the last on_points return and to
+     finish(), optimization_step ms a call and calls, and the lock_wait.*
+     times printed beside the serial drive's.
+Phase 5 also runs a deskewed variant (deskewing on, a constant angular
+velocity fed through on_imu), card against CPU.
 The line before the last is the kernel report, the last line the result.
 With --out, a JSON file with every measurement goes into DIR.
 """
@@ -91,6 +110,7 @@ CITY_WARMUP = 10
 CITY_FRAMES = 240
 SE3_LM_ITERS = 128        # bench.py:1028
 IMU_FRAMES = 60
+DESKEW_RATE = [0.0, 0.0, 0.5]   # rad/s about z: a car in a gentle turn
 
 
 def fail(msg):
@@ -267,11 +287,15 @@ def make_pipeline(cfg, device="cuda"):
                     device=device)
 
 
-def drive(pipe, frames, gts=None):
-    """GPS then the scan of every frame; returns the odometry frames."""
+def drive(pipe, frames, gts=None, angular_velocity=None):
+    """GPS (and an IMU sample with ``angular_velocity``) then the scan of
+    every frame; returns the odometry frames."""
     out = []
     for k, fr in enumerate(frames):
         pipe.on_gps(fr.stamp, *fr.gps)
+        if angular_velocity is not None:
+            pipe.on_imu(fr.stamp, [1.0, 0.0, 0.0, 0.0],
+                        angular_velocity=angular_velocity)
         out.append(pipe.on_points(fr.stamp, fr.points,
                                   gt_pose=None if gts is None else gts[k]))
     return out
@@ -347,7 +371,7 @@ def run_slice(report):
           f"nn1 launched {launches} times for {len(edges)} edges")
     check(converged >= 0.9, f"only {converged:.3f} of frames converged")
     check(drift <= 0.05 * path, f"drift {drift:.3f} m > 5% of {path:.3f} m")
-    return launches
+    return launches, frames
 
 
 def voxel_sums(report):
@@ -425,28 +449,33 @@ def small_check(report):
                                   keyframe_delta_angle=1.0),
     )
     _, frames = raycast_city_sequence(n_frames=10, speed=3.0, seed=5)
-    runs = []
-    for device in ("cuda", "cpu"):
-        pipe = make_pipeline(cfg, device)
-        odo = drive(pipe, frames)
-        pipe.finish()
-        runs.append((odo, odometry_edges(pipe.backend)))
-    (odo_g, edges_g), (odo_c, edges_c) = runs
-    eps = cfg.odometry.registration.transformation_epsilon
-    worst = 0.0
-    for k, (g, c) in enumerate(zip(odo_g, odo_c)):
-        dt = float(np.abs(g.pose[:3, 3] - c.pose[:3, 3]).max())
-        worst = max(worst, dt)
-        lim = 1e-2 if g.iterations == c.iterations else eps
-        check(dt < lim, f"small check frame {k}: card and CPU poses {dt} m apart")
-    check(len(edges_g) == len(edges_c) >= 2,
-          f"small check: {len(edges_g)} vs {len(edges_c)} odometry edges")
-    for eg, ec in zip(edges_g, edges_c):
-        check(np.allclose(eg["info"], ec["info"], rtol=1e-3),
-              "small check: information matrices differ beyond rtol 1e-3")
-    print(f"small check: card vs CPU poses within {worst:.2e} m, "
-          f"{len(edges_g)} odometry edges agree", flush=True)
-    report["small_check"] = {"max_pose_gap_m": worst, "edges": len(edges_g)}
+    deskewed = dataclasses.replace(cfg, prefiltering=dataclasses.replace(
+        cfg.prefiltering, deskewing=True))
+    report["small_check"] = {}
+    for name, c, spin in (("plain", cfg, None), ("deskewed", deskewed, DESKEW_RATE)):
+        runs = []
+        for device in ("cuda", "cpu"):
+            pipe = make_pipeline(c, device)
+            odo = drive(pipe, frames, angular_velocity=spin)
+            pipe.finish()
+            runs.append((odo, odometry_edges(pipe.backend)))
+        (odo_g, edges_g), (odo_c, edges_c) = runs
+        eps = cfg.odometry.registration.transformation_epsilon
+        worst = 0.0
+        for k, (g, cc) in enumerate(zip(odo_g, odo_c)):
+            dt = float(np.abs(g.pose[:3, 3] - cc.pose[:3, 3]).max())
+            worst = max(worst, dt)
+            lim = 1e-2 if g.iterations == cc.iterations else eps
+            check(dt < lim, f"small check ({name}) frame {k}: card and CPU poses "
+                  f"{dt} m apart")
+        check(len(edges_g) == len(edges_c) >= 2,
+              f"small check ({name}): {len(edges_g)} vs {len(edges_c)} odometry edges")
+        for eg, ec in zip(edges_g, edges_c):
+            check(np.allclose(eg["info"], ec["info"], rtol=1e-3),
+                  f"small check ({name}): information matrices differ beyond rtol 1e-3")
+        print(f"small check ({name}): card vs CPU poses within {worst:.2e} m, "
+              f"{len(edges_g)} odometry edges agree", flush=True)
+        report["small_check"][name] = {"max_pose_gap_m": worst, "edges": len(edges_g)}
 
 
 # ------------------------------------------------------------ graph solve
@@ -782,13 +811,68 @@ def run_backend(report, frames):
 
 # ---------------------------------------------------------- buildings drive
 
-def city_drive(world, frames, gts, buildings=True):
+def recorded(pipe):
+    """Counts the backend's update steps (their non-empty stats) and records
+    the odometry pose of every frame as bytes, whichever thread runs them."""
+    cycles, odo = [], []
+    step, matching = pipe.backend.optimization_step, pipe.odometry.matching
+
+    def counted_step():
+        out = step()
+        cycles.append(out)
+        return out
+
+    def recorded_matching(*a, **kw):
+        frame = matching(*a, **kw)
+        odo.append(np.asarray(frame.pose).tobytes())
+        return frame
+
+    pipe.backend.optimization_step = counted_step
+    pipe.odometry.matching = recorded_matching
+    return cycles, odo
+
+
+def settle(pipe, n_frames, timeout=600.0):
+    """Threaded: wait until the backend worker has taken ``n_frames``."""
+    t0 = time.perf_counter()
+    while pipe.threaded and pipe.frames_processed < n_frames:
+        check(pipe._worker_error is None, f"worker error: {pipe._worker_error!r}")
+        check(time.perf_counter() - t0 < timeout,
+              f"{pipe.frames_processed} of {n_frames} frames after {timeout} s")
+        time.sleep(0.005)
+
+
+def timed_drive(pipe, frames, gts, warmup, feed):
+    """bench.py's protocol: ``warmup`` frames and two update steps, the
+    timers reset, then the timed frames and finish(). Returns (wall seconds
+    to the last on_points return, to the end of finish())."""
+    import torch
+
+    for fr, gt in zip(frames[:warmup], gts):
+        feed(fr, gt)
+    settle(pipe, warmup)
+    pipe.optimize()
+    pipe.optimize()
+    pipe.timer.reset()
+    pipe.backend.timer.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for fr, gt in zip(frames[warmup:], gts[warmup:]):
+        feed(fr, gt)
+    if not pipe.threaded:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pipe.finish()
+    torch.cuda.synchronize()
+    return wall, time.perf_counter() - t0
+
+
+def city_drive(world, frames, gts, buildings=True, threaded=False):
     """bench.py:127-187 without its compile pass: the delta preset at full
     capacity, CITY_WARMUP frames and two update steps, the timers reset,
     then the timed frames and finish(). Returns (pipeline, non-empty
-    per-cycle stats, wall seconds of the timed frames)."""
-    import torch
-
+    per-cycle stats, wall seconds of the timed frames to the last on_points
+    return and to finish(), the odometry of every frame)."""
     from delta_graph_slam_tpu_torch.buildings import StaticProvider
     from delta_graph_slam_tpu_torch.config import get_preset
     from delta_graph_slam_tpu_torch.pipeline.runner import Pipeline
@@ -798,29 +882,15 @@ def city_drive(world, frames, gts, buildings=True):
         cfg = dataclasses.replace(cfg, delta=dataclasses.replace(
             cfg.delta, enable_buildings=False))
     pipe = Pipeline(cfg, building_provider=StaticProvider(
-        world.osm_xml() if buildings else EMPTY_OSM), device="cuda")
-    cycles, step = [], pipe.backend.optimization_step
+        world.osm_xml() if buildings else EMPTY_OSM), device="cuda", threaded=threaded)
+    cycles, odo = recorded(pipe)
 
-    def counted_step():
-        out = step()
-        cycles.append(out)
-        return out
-
-    pipe.backend.optimization_step = counted_step
-    drive(pipe, frames[:CITY_WARMUP], gts[:CITY_WARMUP])
-    pipe.backend.optimization_step()
-    pipe.backend.optimization_step()
-    pipe.timer.reset()
-    pipe.backend.timer.reset()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for fr, gt in zip(frames[CITY_WARMUP:], gts[CITY_WARMUP:]):
+    def feed(fr, gt):
         pipe.on_gps(fr.stamp, *fr.gps)
         pipe.on_points(fr.stamp, fr.points, gt_pose=gt)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    pipe.finish()
-    return pipe, [c for c in cycles if c], wall
+
+    wall, wall_finish = timed_drive(pipe, frames, gts, CITY_WARMUP, feed)
+    return pipe, [c for c in cycles if c], wall, wall_finish, odo
 
 
 def building_counts(backend):
@@ -863,7 +933,7 @@ def run_buildings(report, world, frames, gts):
     from delta_graph_slam_tpu_torch.ops import nn_kernel
 
     nn_kernel.launches = 0
-    pipe, cycles, wall = city_drive(world, frames, gts)
+    pipe, cycles, wall, wall_finish, odo = city_drive(world, frames, gts)
     launches = nn_kernel.launches
     be = pipe.backend
     m = pipe.evaluate()
@@ -898,7 +968,7 @@ def run_buildings(report, world, frames, gts):
     print(f"save_map: {saved}, points {pcd}", flush=True)
 
     # the same frames again: the drive must repeat bit for bit
-    pipe_2, cycles_2, wall_2 = city_drive(world, frames, gts)
+    pipe_2, cycles_2, wall_2, _, _ = city_drive(world, frames, gts)
     same = {
         "poses": np.array_equal(be.poses, pipe_2.backend.poses),
         "odom": drive_record(be, "odom") == drive_record(pipe_2.backend, "odom"),
@@ -910,7 +980,7 @@ def run_buildings(report, world, frames, gts):
     print(f"the drive twice: bitwise equal {same} ({CITY_FRAMES / wall_2:.3f} "
           "frames/s the second time)", flush=True)
 
-    pipe_n, _, wall_n = city_drive(world, frames, gts, buildings=False)
+    pipe_n, _, wall_n, _, _ = city_drive(world, frames, gts, buildings=False)
     m_n = pipe_n.evaluate()
     print("ATE {ATE_mean:.4f} m (std {ATE_std:.4f}), t-RPE {t_RPE_mean:.4f} m, "
           "r-RPE {r_RPE_mean:.5f} rad".format(**m)
@@ -939,7 +1009,15 @@ def run_buildings(report, world, frames, gts):
     check(m["ATE_mean"] <= 1.0, f"ATE {m['ATE_mean']} m > 1.0 m")
     check(saved and all(n > 0 for n in pcd.values()), f"save_map wrote {pcd}")
     check(all(same.values()), f"two drives of the same frames differ: {same}")
-    return launches
+    return launches, serial_record(pipe, wall, wall_finish, odo)
+
+
+def serial_record(pipe, wall, wall_finish, odo):
+    """What phase 12 holds a threaded drive against: keyframe stamps, the
+    odometry of every frame, and the timings."""
+    return {"stamps": [k.stamp for k in pipe.backend.keyframes], "odo": odo,
+            "wall": wall, "wall_finish": wall_finish,
+            "timing": pipe.timing_summary(), "ate": pipe.evaluate()["ATE_mean"]}
 
 
 # ---------------------------------------------------------- SE3 graph solve
@@ -1396,32 +1474,31 @@ def se3_graph_solve(report, n_nodes=GRAPH_NODES, device="cuda"):
 
 # ---------------------------------------------------------------- hdl drive
 
-def hdl_drive(preset, frames, gts, warmup, imu=False, device="cuda"):
-    """The hdl pipeline single-threaded as bench.py:221-267 drives it:
-    ``warmup`` frames and two update steps, the timers reset, then the timed
-    frames (GPS before every scan; with ``imu`` an identity orientation and
-    gravity-only acceleration too) and finish(). Returns (pipeline,
-    non-empty per-cycle stats, frames with floor coefficients, wall seconds
-    of the timed frames)."""
-    import torch
-
+def hdl_drive(cfg, frames, gts, warmup, imu=False, device="cuda", threaded=False,
+              watch=None):
+    """The hdl pipeline (``cfg``, a preset name or a PipelineConfig) as
+    bench.py:221-267 drives it: ``warmup`` frames and two update steps, the
+    timers reset, then the timed frames (GPS before every scan; with ``imu``
+    an identity orientation and gravity-only acceleration too) and
+    finish(). Returns (pipeline, non-empty per-cycle stats, frames with
+    floor coefficients, wall seconds of the timed frames to the last
+    on_points return and to finish(), the odometry of every frame).
+    ``watch(pipe)`` may wrap the pipeline's parts before the drive."""
     from delta_graph_slam_tpu_torch.config import get_preset
     from delta_graph_slam_tpu_torch.pipeline.runner import Pipeline
 
-    pipe = Pipeline(get_preset(preset), device=device)
-    cycles, floors = [], [0]
-    step, floor_cb = pipe.backend.optimization_step, pipe.backend.floor_coeffs_callback
-
-    def counted_step():
-        out = step()
-        cycles.append(out)
-        return out
+    if isinstance(cfg, str):
+        cfg = get_preset(cfg)
+    pipe = Pipeline(cfg, device=device, threaded=threaded)
+    cycles, odo = recorded(pipe)
+    if watch is not None:
+        watch(pipe)
+    floors, floor_cb = [0], pipe.backend.floor_coeffs_callback
 
     def counted_floor(stamp, coeffs):
         floors[0] += coeffs is not None
         return floor_cb(stamp, coeffs)
 
-    pipe.backend.optimization_step = counted_step
     pipe.backend.floor_coeffs_callback = counted_floor
 
     def feed(fr, gt):
@@ -1431,20 +1508,8 @@ def hdl_drive(preset, frames, gts, warmup, imu=False, device="cuda"):
                         linear_acceleration=[0.0, 0.0, 9.81])
         pipe.on_points(fr.stamp, fr.points, gt_pose=gt)
 
-    for fr, gt in zip(frames[:warmup], gts):
-        feed(fr, gt)
-    pipe.backend.optimization_step()
-    pipe.backend.optimization_step()
-    pipe.timer.reset()
-    pipe.backend.timer.reset()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for fr, gt in zip(frames[warmup:], gts[warmup:]):
-        feed(fr, gt)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    pipe.finish()
-    return pipe, [c for c in cycles if c], floors[0], wall
+    wall, wall_finish = timed_drive(pipe, frames, gts, warmup, feed)
+    return pipe, [c for c in cycles if c], floors[0], wall, wall_finish, odo
 
 
 def edge_counts(builder):
@@ -1470,8 +1535,8 @@ def run_hdl(report, frames, gts, device="cuda"):
           f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
     torch.cuda.reset_peak_memory_stats()
     nn_kernel.launches = 0
-    pipe, cycles, n_floor, wall = hdl_drive("hdl_400", frames, gts, CITY_WARMUP,
-                                            device=device)
+    pipe, cycles, n_floor, wall, wall_finish, odo_record = hdl_drive(
+        "hdl_400", frames, gts, CITY_WARMUP, device=device)
     launches = nn_kernel.launches
     peak = torch.cuda.max_memory_allocated()
     be = pipe.backend
@@ -1521,8 +1586,8 @@ def run_hdl(report, frames, gts, device="cuda"):
           f"graph.g2o read back with (poses, planes, edges) {back_counts}", flush=True)
 
     # the same frames again: is the drive bit-repeatable?
-    pipe_2, cycles_2, _, wall_2 = hdl_drive("hdl_400", frames, gts, CITY_WARMUP,
-                                            device=device)
+    pipe_2, cycles_2, _, wall_2, _, _ = hdl_drive("hdl_400", frames, gts, CITY_WARMUP,
+                                                  device=device)
     poses_2 = np.stack(pipe_2.backend.graph.poses)
     same = {
         "poses": poses.shape == poses_2.shape and bool(np.array_equal(poses, poses_2)),
@@ -1535,9 +1600,9 @@ def run_hdl(report, frames, gts, device="cuda"):
           f"({n_timed / wall_2:.3f} frames/s the second time)", flush=True)
 
     nn_kernel.launches = 0
-    pipe_i, cycles_i, _, wall_i = hdl_drive("hdl_imu", frames[:IMU_FRAMES],
-                                            gts[:IMU_FRAMES], 0, imu=True,
-                                            device=device)
+    pipe_i, cycles_i, _, wall_i, _, _ = hdl_drive("hdl_imu", frames[:IMU_FRAMES],
+                                                  gts[:IMU_FRAMES], 0, imu=True,
+                                                  device=device)
     launches_i = nn_kernel.launches
     counts_i = edge_counts(pipe_i.backend.graph)
     n_kf_i = len(pipe_i.backend.keyframes)
@@ -1578,7 +1643,206 @@ def run_hdl(report, frames, gts, device="cuda"):
           f"hdl_imu: edges {counts_i} for {n_kf_i} keyframes")
     check(n_kf_i >= 3 and finite_i, f"hdl_imu: {n_kf_i} keyframes, finite {finite_i}")
     check(launches_i > 0, "the hdl_imu drive launched no nn1 kernel")
-    return launches + launches_i
+    return launches + launches_i, serial_record(pipe, wall, wall_finish, odo_record)
+
+
+# ------------------------------------------------------- registration heads
+
+def odometry_drive(frames, registration):
+    """phase 4's drive with the odometry registration replaced; returns
+    (odometry frames, pipeline, wall seconds)."""
+    import torch
+
+    from delta_graph_slam_tpu_torch.config import get_preset
+
+    cfg = get_preset("delta")
+    cfg = dataclasses.replace(cfg, odometry=dataclasses.replace(
+        cfg.odometry, registration=registration))
+    pipe = make_pipeline(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    odo = drive(pipe, frames)
+    pipe.finish()
+    torch.cuda.synchronize()
+    return odo, pipe, time.perf_counter() - t0
+
+
+def odometry_quality(odo, gts):
+    """(converged share, drift m, path m, GN iterations a frame)."""
+    path = float(sum(np.linalg.norm(gts[k + 1][:2] - gts[k][:2])
+                     for k in range(len(gts) - 1)))
+    drift = float(np.linalg.norm(odo[-1].pose[:2, 3] - gts[-1][:2]))
+    return (float(np.mean([f.converged for f in odo[1:]])), drift, path,
+            float(np.mean([f.iterations for f in odo[1:]])))
+
+
+def run_heads(report, frames, lap):
+    """Phase 11: the NDT and VGICP heads on phase 4's frames, then the
+    nodelet-default NDT backend registration validating loops on phase 7's
+    lap."""
+    from delta_graph_slam_tpu_torch.config import get_preset
+    from delta_graph_slam_tpu_torch.models.hdl_backend import HdlBackendConfig
+    from delta_graph_slam_tpu_torch.ops import nn_kernel
+    from delta_graph_slam_tpu_torch.register.config import REGISTRATION_PRESETS
+
+    gts = rel_gt(frames)
+    gicp = report["slice"]
+    rows = {"FAST_GICP": {
+        "odometry_ms_per_frame": gicp["ms_per_frame"]["odometry"],
+        "gn_iterations_per_frame": float(np.mean(gicp["gn_iterations"])),
+        "drift_m": gicp["drift_m"], "converged": gicp["converged_fraction"]}}
+    print("FAST_GICP (phase 4): odometry {:.3f} ms/frame, GN iterations/frame {:.2f}, "
+          "drift {:.4f} m".format(rows["FAST_GICP"]["odometry_ms_per_frame"],
+                                  rows["FAST_GICP"]["gn_iterations_per_frame"],
+                                  gicp["drift_m"]), flush=True)
+    launches = 0
+    heads = (("NDT_OMP", REGISTRATION_PRESETS["hdl"], False),
+             ("FAST_VGICP", dataclasses.replace(REGISTRATION_PRESETS["hdl"],
+                                                method="FAST_VGICP"), True))
+    for name, reg, hold_drift in heads:
+        nn_kernel.launches = 0
+        odo, pipe, wall = odometry_drive(frames, reg)
+        launches += nn_kernel.launches
+        odo_2, _, _ = odometry_drive(frames, reg)
+        same = all(np.array_equal(a.pose, b.pose) for a, b in zip(odo, odo_2))
+        conv, drift, path, iters = odometry_quality(odo, gts)
+        t = pipe.timing_summary()
+        row = {"odometry_ms_per_frame": t["odometry"]["total_s"] * 1000.0 / len(frames),
+               "gn_iterations_per_frame": iters, "converged": conv, "drift_m": drift,
+               "path_m": path, "repeatable": same, "frames_per_s": len(frames) / wall}
+        rows[name] = row
+        print(f"{name}: odometry {row['odometry_ms_per_frame']:.3f} ms/frame, GN "
+              f"iterations/frame {iters:.2f}, converged {conv:.3f}, drift {drift:.4f} m "
+              f"over {path:.3f} m ({100 * drift / path:.2f}%"
+              f"{'' if hold_drift else ', not held'}), two runs bitwise equal {same}",
+              flush=True)
+        check(conv >= 0.9, f"{name}: only {conv:.3f} of frames converged")
+        check(same, f"{name}: two runs of the same frames differ")
+        if hold_drift:
+            check(drift <= 0.05 * path, f"{name}: drift {drift:.3f} m > 5% of {path:.3f} m")
+
+    # hdl_400 with the nodelet's NDT_OMP backend registration over the lap
+    cfg = get_preset("hdl_400")
+    cfg = dataclasses.replace(cfg, hdl=dataclasses.replace(
+        cfg.hdl, registration=HdlBackendConfig().registration))
+    lap_gts = rel_gt(lap)
+    nn_kernel.launches = 0
+    aligned = []
+
+    def watch(pipe):
+        reg = pipe.backend.loop_detector.registration
+        align = reg._align
+
+        def counted(*a):
+            res = align(*a)
+            aligned.append(bool(res.converged))
+            return res
+
+        reg._align = counted
+
+    pipe, cycles, _, wall, _, _ = hdl_drive(cfg, lap, lap_gts, 0, watch=watch)
+    launches += nn_kernel.launches
+    loops = [c.get("loops", 0) for c in cycles]
+    m = pipe.evaluate()
+    print(f"hdl_400 + NDT_OMP backend registration, {len(lap)}-frame lap: "
+          f"{len(lap) / wall:.3f} frames/s, keyframes {len(pipe.backend.keyframes)}, "
+          f"loop candidates aligned through NDT {len(aligned)} ({sum(aligned)} "
+          f"converged), loops accepted {sum(loops)}, ATE {m['ATE_mean']:.4f} m", flush=True)
+    rows["hdl_ndt_lap"] = {"candidates_aligned": len(aligned),
+                           "candidates_converged": sum(aligned), "loops": sum(loops),
+                           "keyframes": len(pipe.backend.keyframes), "metrics": m,
+                           "frames_per_s": len(lap) / wall}
+    report["heads"] = rows
+    check(len(aligned) >= 1, "no loop candidate was aligned through NDT")
+    check(all(np.isfinite(c["chi2"]) for c in cycles), "hdl NDT lap: chi2 not finite")
+    return launches
+
+
+# ---------------------------------------------------------- threaded runner
+
+def lock_waits(timing):
+    return {k: v["total_s"] for k, v in timing.items() if "lock_wait" in k}
+
+
+def odometry_gap(a, b):
+    """(largest pose-entry gap, first frame that differs or -1) of two
+    odometry records."""
+    if len(a) != len(b):
+        return float("nan"), -1
+    d = np.abs(np.stack([np.frombuffer(x) for x in a])
+               - np.stack([np.frombuffer(x) for x in b])).max(1)
+    return float(d.max()), int(np.argmax(d > 0)) if (d > 0).any() else -1
+
+
+def held_against_serial(name, pipe, wall, wall_finish, odo, serial, n_timed):
+    """Phase 12's checks and prints of one threaded drive against the serial
+    drive of the same frames (phase 8's or phase 10's first drive)."""
+    t = pipe.timing_summary()
+    stamps = [k.stamp for k in pipe.backend.keyframes]
+    same = {"keyframe_stamps": stamps == serial["stamps"], "odometry": odo == serial["odo"]}
+    m = pipe.evaluate()
+    st = serial["timing"]
+
+    def opt(timing):
+        o = timing.get("optimization_step", {"mean_ms": float("nan"), "count": 0})
+        return o["mean_ms"], o["count"]
+
+    row = {
+        "frames_per_s_to_last_on_points": n_timed / wall,
+        "frames_per_s_to_finish": n_timed / wall_finish,
+        "serial_frames_per_s_to_last_on_points": n_timed / serial["wall"],
+        "serial_frames_per_s_to_finish": n_timed / serial["wall_finish"],
+        "optimization_step_ms": opt(t)[0], "optimization_step_calls": opt(t)[1],
+        "serial_optimization_step_ms": opt(st)[0],
+        "serial_optimization_step_calls": opt(st)[1],
+        "lock_wait_s": lock_waits(t), "serial_lock_wait_s": lock_waits(st),
+        "keyframes": len(stamps), "bitwise_equal_to_serial": same, "metrics": m,
+        "timing": t, "odometry_gap_to_serial": odometry_gap(odo, serial["odo"]),
+    }
+    print(f"{name} threaded: {row['frames_per_s_to_last_on_points']:.3f} frames/s to the "
+          f"last on_points, {row['frames_per_s_to_finish']:.3f} to finish() (serial "
+          f"{row['serial_frames_per_s_to_last_on_points']:.3f} / "
+          f"{row['serial_frames_per_s_to_finish']:.3f}); optimization_step "
+          f"{row['optimization_step_ms']:.1f} ms x {row['optimization_step_calls']} "
+          f"(serial {row['serial_optimization_step_ms']:.1f} ms x "
+          f"{row['serial_optimization_step_calls']}); lock_wait {row['lock_wait_s']} "
+          f"(serial {row['serial_lock_wait_s']}); keyframes {len(stamps)}, bitwise equal "
+          f"to serial {same}, odometry gap (max, first frame) "
+          f"{row['odometry_gap_to_serial']}; ATE {m['ATE_mean']:.4f} m (serial "
+          f"{serial['ate']:.4f})", flush=True)
+    print(f"{name} threaded, ms per call: " + ", ".join(
+        f"{k} {v['mean_ms']:.2f} x {v['count']}" for k, v in sorted(t.items())), flush=True)
+    check(all(same.values()), f"{name}: threaded drive differs from serial: {same}")
+    check(m["ATE_mean"] <= 1.0, f"{name} threaded: ATE {m['ATE_mean']} m > 1.0 m")
+    return row
+
+
+def run_threaded(report, world, frames, gts, serial_city, serial_hdl):
+    """Phase 12: the building drive and the hdl_400 drive through
+    Pipeline(threaded=True), held against phase 8's and phase 10's first
+    (serial) drives."""
+    from delta_graph_slam_tpu_torch.ops import nn_kernel
+
+    n_timed = len(frames) - CITY_WARMUP
+    nn_kernel.launches = 0
+    try:
+        pipe, _, wall, wall_finish, odo = city_drive(world, frames, gts, threaded=True)
+    except Exception as e:  # noqa: BLE001 - reported as the phase's failure
+        fail(f"threaded building drive: {e!r}")
+    rows = {"buildings": held_against_serial("building drive", pipe, wall, wall_finish,
+                                             odo, serial_city, n_timed)}
+    try:
+        pipe, _, _, wall, wall_finish, odo = hdl_drive("hdl_400", frames, gts, CITY_WARMUP,
+                                                       threaded=True)
+    except Exception as e:  # noqa: BLE001 - reported as the phase's failure
+        fail(f"threaded hdl drive: {e!r}")
+    rows["hdl"] = held_against_serial("hdl_400 drive", pipe, wall, wall_finish, odo,
+                                      serial_hdl, n_timed)
+    launches = nn_kernel.launches
+    rows["nn1_launches"] = launches
+    report["threaded"] = rows
+    check(launches > 0, "the threaded drives launched no nn1 kernel")
+    return launches
 
 
 def main():
@@ -1623,7 +1887,7 @@ def main():
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
     t = phase("slice: 40 frames, delta preset, full capacity")
-    launches = run_slice(report)
+    launches, slice_frames = run_slice(report)
     voxel_sums(report)
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
@@ -1648,7 +1912,8 @@ def main():
 
     t = phase(f"buildings: {CITY_FRAMES}-frame raycast city drive, delta preset")
     world, city, city_gts = city_frames()
-    launches += run_buildings(report, world, city, city_gts)
+    n, serial_city = run_buildings(report, world, city, city_gts)
+    launches += n
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
     t = phase(f"SE3 graph solve: {GRAPH_NODES}-node hdl graph, chain + hub backend")
@@ -1657,7 +1922,18 @@ def main():
 
     t = phase(f"hdl drive: {CITY_FRAMES}-frame raycast city drive, hdl_400, then "
               f"{IMU_FRAMES} frames of hdl_imu")
-    launches += run_hdl(report, city, city_gts)
+    n, serial_hdl = run_hdl(report, city, city_gts)
+    launches += n
+    print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
+
+    t = phase(f"registration heads: NDT_OMP and FAST_VGICP odometry on {N_FRAMES} frames, "
+              f"the NDT backend registration on the {LAP_FRAMES}-frame lap")
+    launches += run_heads(report, slice_frames, lap)
+    print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
+
+    t = phase(f"threaded runner: the building drive and the hdl_400 drive, "
+              f"{CITY_FRAMES} frames each")
+    launches += run_threaded(report, world, city, city_gts, serial_city, serial_hdl)
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
     if args.out:

@@ -19,8 +19,16 @@ Batched pair and building counts are not padded: the JAX package pads them
 to powers of two so that XLA reuses compiled programs, and padded slots
 change no result.
 
-Not in this slice: the threaded runner and its four locks (this backend is
-single-threaded), save_state/load_state and create_marker_array.
+Threads: the reference's four-mutex shape (delta_graph_slam_nodelet.cpp
+:1316-1355). The graph, keyframes and snapshots sit behind the main lock,
+which ``optimization_step`` holds; each message queue and trans_odom2map
+sit behind a small lock of their own. The expensive per-keyframe work of
+``cloud_callback`` (get_buildings, align_global) takes no lock the
+optimizer holds, so the threaded runner's backend worker and optimizer
+thread overlap (pipeline/runner.py). Time spent waiting for a lock is
+recorded as ``lock_wait.<entry point>``.
+
+Not in this slice: save_state/load_state and create_marker_array.
 
 One divergence: the reference downloads OSM data from the public Overpass
 server when no building provider is given. This backend needs the provider
@@ -30,7 +38,10 @@ nothing reaches the network unasked.
 """
 
 import dataclasses
+import functools
 import os
+import threading
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -109,6 +120,23 @@ def _concat_lines(buildings, capacity):
     a = np.concatenate(a_all)[:capacity]
     b = np.concatenate(b_all)[:capacity]
     return make_lines(a, b, capacity=capacity)
+
+
+def _locked(fn, attr="lock"):
+    """Serialize an entry point on the named backend lock; waits longer than
+    0.1 ms are recorded as ``lock_wait.<name>``, so stage means separate
+    real work from cross-thread serialization."""
+
+    @functools.wraps(fn)
+    def wrapper(self, *a, **kw):
+        t0 = time.perf_counter()
+        with getattr(self, attr):
+            dt = time.perf_counter() - t0
+            if dt > 1e-4:
+                self.timer.add("lock_wait." + fn.__name__, dt)
+            return fn(self, *a, **kw)
+
+    return wrapper
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,7 +237,8 @@ class DeltaBackend:
         self.inf_calculator = cfg.inf
         self.map_generator = MapCloudGenerator()
         self.nmea_parser = NmeaSentenceParser()
-        # stage clocks wait for the card, so each stage is charged its own work
+        # stage clocks wait for the card, so each stage is charged its own
+        # work (the threaded runner turns the wait off)
         self.timer = StageTimer(
             sync=torch.cuda.synchronize if self.device.type == "cuda" else None)
 
@@ -235,6 +264,10 @@ class DeltaBackend:
         self.anchor_edge_id: Optional[int] = None
         self.overlap_edge_ids: List[int] = []
         self.read_until_stamp = 0.0
+        self.lock = threading.RLock()            # main_thread_mutex
+        self.kf_queue_lock = threading.Lock()    # keyframe_queue_mutex
+        self.gps_queue_lock = threading.Lock()   # gps_queue_mutex
+        self.odom2map_lock = threading.Lock()    # trans_odom2map_mutex
 
     @property
     def poses(self):
@@ -242,41 +275,48 @@ class DeltaBackend:
 
     # ---------------------------------------------------------- gps path
     # graph mutations on behalf of the building manager: a new building's
-    # vertex and its weak level-1 priors (building_tools.cpp:137-148)
+    # vertex and its weak level-1 priors (building_tools.cpp:137-148). They
+    # come from the cloud_callback thread while the optimizer may hold the
+    # graph, so they take the main lock (the reference mutates g2o there
+    # unguarded; the JAX package closes that race the same way)
     def _graph_add_vertex(self, pose):
-        return self.graph.add_vertex(pose)
+        with self.lock:
+            return self.graph.add_vertex(pose)
 
     def _graph_add_prior_xy(self, v, xy, w):
-        return self.graph.add_prior_xy(v, xy, np.eye(2) * w, level=1)
+        with self.lock:
+            return self.graph.add_prior_xy(v, xy, np.eye(2) * w, level=1)
 
     def _graph_add_prior_yaw(self, v, yaw, w):
-        return self.graph.add_prior_yaw(v, yaw, w, level=1)
+        with self.lock:
+            return self.graph.add_prior_yaw(v, yaw, w, level=1)
 
     def gps_callback(self, stamp, lat, lon, alt=0.0):
         stamp = stamp + self.cfg.gps_time_offset
-        if self.origin is None:
-            if self._building_provider is None:
-                raise ValueError(
-                    "no building provider: pass OverpassProvider(host) to "
-                    "query OSM online, or StaticProvider/FileProvider offline")
-            self.scale = float(mercator_scale(lat))
-            self.origin = np.asarray(mercator_from_gps(
-                np.float64(lat), np.float64(lon), np.float64(alt),
-                scale=self.scale))
-            mgr = BuildingManager(
-                self._building_provider, self.origin, self.scale,
-                graph_add_vertex=self._graph_add_vertex,
-                graph_add_prior_xy=self._graph_add_prior_xy,
-                graph_add_prior_yaw=self._graph_add_prior_yaw,
-                radius=self.cfg.nearby_buildings_radius,
-                buffer_radius=self.cfg.buffer_buildings_radius,
-                device=self.device,
-            )
+        with self.gps_queue_lock:
+            first = self.origin is None
+            if first:
+                if self._building_provider is None:
+                    raise ValueError(
+                        "no building provider: pass OverpassProvider(host) to "
+                        "query OSM online, or StaticProvider/FileProvider offline")
+                self.scale = float(mercator_scale(lat))
+                self.origin = np.asarray(mercator_from_gps(
+                    np.float64(lat), np.float64(lon), np.float64(alt),
+                    scale=self.scale))
+                mgr = BuildingManager(
+                    self._building_provider, self.origin, self.scale,
+                    graph_add_vertex=self._graph_add_vertex,
+                    graph_add_prior_xy=self._graph_add_prior_xy,
+                    graph_add_prior_yaw=self._graph_add_prior_yaw,
+                    radius=self.cfg.nearby_buildings_radius,
+                    buffer_radius=self.cfg.buffer_buildings_radius,
+                    device=self.device,
+                )
             self.gps_queue.append((stamp, lat, lon))
+        if first:
             mgr.get_buildings(lat, lon)
             self.buildings_manager = mgr   # publish once initialized
-            return
-        self.gps_queue.append((stamp, lat, lon))
 
     def nmea_callback(self, stamp, sentence):
         rmc = self.nmea_parser.parse(sentence)
@@ -296,16 +336,27 @@ class DeltaBackend:
         self.initial_orientation_yaw = yaw
         if self.cfg.use_imu_for_initial_orientation:
             rot = np.array([0.0, 0.0, yaw])
-            self.trans_odom2map = se2_compose_np(rot, self.trans_odom2map)
+            with self.odom2map_lock:
+                self.trans_odom2map = se2_compose_np(rot, self.trans_odom2map)
             self._update_anchor(rot)
 
     def _update_anchor(self, pose):
-        if self.anchor_node is not None and self.keyframes:
-            self.graph.set_pose(self.anchor_node, pose)
+        with self.lock:
+            if self.anchor_node is not None and self.keyframes:
+                self.graph.set_pose(self.anchor_node, pose)
+
+    def _get_odom2map(self):
+        with self.odom2map_lock:
+            return self.trans_odom2map.copy()
 
     # ------------------------------------------------------ keyframe path
     def cloud_callback(self, stamp, odom_4x4, cloud, flat_cloud, gt_pose=None):
-        """Synchronized (odom, cloud, flat_cloud) arrival (:202-359)."""
+        """Synchronized (odom, cloud, flat_cloud) arrival (:202-359).
+
+        Takes no lock the optimizer holds on its expensive path (as the
+        reference computes align_global before taking keyframe_queue_mutex,
+        :278, :344-358). One caller thread at a time: the keyframe updater
+        is shared with no other entry point."""
         mgr = self.buildings_manager
         if mgr is None:
             return  # :206-209, no GPS fix yet
@@ -319,7 +370,7 @@ class DeltaBackend:
                 self.read_until_stamp = stamp + 3.0
             return
 
-        odom2map = self.trans_odom2map.copy()
+        odom2map = self._get_odom2map()
         map_pose = se2_compose_np(odom2map, odom2d)
         # reverse-Mercator of the current estimated position (:243-251)
         xyz = np.array([map_pose[0], map_pose[1], 0.0]) + self.origin
@@ -348,30 +399,34 @@ class DeltaBackend:
                 trans = se2_compose_np(odom2map, odom_trans2d)
                 trans[:2] = 0.0
                 self._update_anchor(trans)
-                self.trans_odom2map = trans
+                with self.odom2map_lock:
+                    self.trans_odom2map = trans
 
         if add_keyframe:
             accum_d = self.keyframe_updater.get_accum_distance()
             if accum_d > 0:
                 self.adjust_initial_orientation = False
-            self.keyframe_queue.append(KeyFrame(
+            kf = KeyFrame(
                 stamp=stamp, odom=np.asarray(odom_4x4), odom2d=odom2d,
                 accum_distance=accum_d, cloud=cloud, flat_cloud=flat_cloud,
                 estimated_odom=estimated_odom, global_alignment=result,
                 near_buildings=buildings,
                 gt_pose=None if gt_pose is None else np.asarray(gt_pose),
-            ))
+            )
+            with self.kf_queue_lock:
+                self.keyframe_queue.append(kf)
 
     # --------------------------------------------------------- queue flush
     def flush_keyframe_queue(self) -> bool:
         """Up to max_keyframes_per_update queued keyframes become vertices
         and odometry edges (:416-455)."""
-        if not self.keyframe_queue:
-            return False
-        n = min(len(self.keyframe_queue), self.cfg.max_keyframes_per_update)
-        batch = self.keyframe_queue[:n]
-        del self.keyframe_queue[:n]
-        odom2map = self.trans_odom2map.copy()
+        with self.kf_queue_lock:
+            if not self.keyframe_queue:
+                return False
+            n = min(len(self.keyframe_queue), self.cfg.max_keyframes_per_update)
+            batch = self.keyframe_queue[:n]
+            del self.keyframe_queue[:n]
+        odom2map = self._get_odom2map()
         pending = []   # (kf, prev, rel2d) awaiting the information matrices
         for i, kf in enumerate(batch):
             self.new_keyframes.append(kf)
@@ -407,7 +462,8 @@ class DeltaBackend:
         """Match GPS fixes to keyframes within 0.1 s; with GPS priors on,
         each match becomes a level-0 EdgeSE2PriorXY with information
         I / gps_edge_stddev_xy (the reference's quirk, :481-487)."""
-        gps_queue = list(self.gps_queue)
+        with self.gps_queue_lock:
+            gps_queue = list(self.gps_queue)
         if not self.keyframes or not gps_queue:
             return False
         updated = False
@@ -435,7 +491,8 @@ class DeltaBackend:
                 )
                 updated = True
         last = self.keyframes[-1].stamp
-        self.gps_queue = [g for g in self.gps_queue if g[0] > last]
+        with self.gps_queue_lock:
+            self.gps_queue = [g for g in self.gps_queue if g[0] > last]
         return updated
 
     # --------------------------------------------------- building updates
@@ -450,7 +507,7 @@ class DeltaBackend:
         if not self.cfg.enable_buildings or not self.new_keyframes:
             return False
         updated = False
-        odom2map = self.trans_odom2map.copy()
+        odom2map = self._get_odom2map()
 
         pairs = []
         for idx, kf in enumerate(self.new_keyframes):
@@ -638,9 +695,10 @@ class DeltaBackend:
         self.graph.update_poses(poses)
         return stats
 
+    @_locked
     def optimization_step(self) -> dict:
-        """The 3 s wall-timer body (:793-927). Returns stats, or {} when
-        nothing changed."""
+        """The 3 s wall-timer body (:793-927), under the main lock. Returns
+        stats, or {} when nothing changed."""
         stats = {}
         with self.timer.stage("kf_flush"):
             kf_updated = self.flush_keyframe_queue()
@@ -694,8 +752,9 @@ class DeltaBackend:
         # odom->map update + snapshots (:905-916)
         poses = self.poses
         last = self.keyframes[-1]
-        self.trans_odom2map = se2_compose_np(last.estimate(poses),
-                                             se2_inverse_np(last.odom2d))
+        with self.odom2map_lock:
+            self.trans_odom2map = se2_compose_np(last.estimate(poses),
+                                                 se2_inverse_np(last.odom2d))
         with self.timer.stage("snapshots"):
             self.snapshots = [
                 KeyFrameSnapshot(pose=kf.estimate(poses), cloud=kf.cloud,

@@ -18,13 +18,19 @@ stddev, not its square, while the floor information divides by its square;
 ``flush_floor_queue`` clears the queue even of coefficients it matched to
 no keyframe.
 
-Single-threaded, as the port's DeltaBackend: the JAX package's three locks
-(graph + keyframes, keyframe queue, floor/gps/imu queues) belong to its
-threaded runner, which is not ported.
+Threads: three locks, as in the JAX package (the reference nodelet's
+fine-grained shape): the graph and keyframes behind the main lock, which
+``optimization_step`` holds for its whole multi-second solve; the keyframe
+queue and the floor / GPS / IMU queues behind small locks of their own, so
+the message callbacks of the threaded runner never wait for a solve. The
+JAX package ends ``flush_floor_queue`` by clearing the queue again outside
+its lock, which would drop coefficients queued meanwhile by another
+thread; that clear changes nothing single-threaded and is left out here.
 """
 
 import dataclasses
 import os
+import threading
 from typing import List, Optional
 
 import numpy as np
@@ -43,6 +49,7 @@ from ..register.config import RegistrationConfig
 from ..register.engine import make_registration
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.profiling import StageTimer
+from .delta_backend import _locked
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,7 +133,8 @@ class HdlBackend:
         )
         self.inf_calculator = cfg.inf
         self.map_generator = MapCloudGenerator()
-        # stage clocks wait for the card, so each stage is charged its own work
+        # stage clocks wait for the card, so each stage is charged its own
+        # work (the threaded runner turns the wait off)
         self.timer = StageTimer(
             sync=torch.cuda.synchronize if self.device.type == "cuda" else None)
 
@@ -142,9 +150,15 @@ class HdlBackend:
         self.anchor_node: Optional[int] = None
         self.origin = None
         self.scale = None
+        self.lock = threading.RLock()             # graph + keyframes
+        self.kf_queue_lock = threading.Lock()     # keyframe_queue
+        self.aux_queue_lock = threading.Lock()    # floor / gps / imu queues
 
     # ------------------------------------------------------------- inputs
     def cloud_callback(self, stamp, odom_4x4, cloud, gt_pose=None):
+        """One caller thread at a time (the runner's backend worker): the
+        keyframe updater is shared with no other entry point; only the
+        queue push is cross-thread."""
         if cloud.points.device != self.device:
             raise ValueError(
                 f"cloud on {cloud.points.device}, backend on {self.device}")
@@ -152,39 +166,45 @@ class HdlBackend:
         odom2d = transform_3d_to_2d_np(odom)
         if not self.keyframe_updater.update(odom2d):
             return
-        self.keyframe_queue.append(KeyFrame(
+        kf = KeyFrame(
             stamp=stamp, odom=odom, odom2d=odom2d,
             accum_distance=self.keyframe_updater.get_accum_distance(),
             cloud=cloud, flat_cloud=None,
             gt_pose=None if gt_pose is None else np.asarray(gt_pose),
-        ))
+        )
+        with self.kf_queue_lock:
+            self.keyframe_queue.append(kf)
 
     def floor_coeffs_callback(self, stamp, coeffs):
         if coeffs is not None:
-            self.floor_queue.append((stamp, np.asarray(coeffs, float)))
+            with self.aux_queue_lock:
+                self.floor_queue.append((stamp, np.asarray(coeffs, float)))
 
     def gps_callback(self, stamp, lat, lon, alt=0.0):
-        if self.origin is None:
-            self.scale = float(mercator_scale(lat))
-            self.origin = np.asarray(
-                mercator_from_gps(np.float64(lat), np.float64(lon),
-                                  np.float64(alt), scale=self.scale)
-            )
-        self.gps_queue.append((stamp + self.cfg.gps_time_offset, lat, lon, alt))
+        with self.aux_queue_lock:
+            if self.origin is None:
+                self.scale = float(mercator_scale(lat))
+                self.origin = np.asarray(
+                    mercator_from_gps(np.float64(lat), np.float64(lon),
+                                      np.float64(alt), scale=self.scale)
+                )
+            self.gps_queue.append((stamp + self.cfg.gps_time_offset, lat, lon, alt))
 
     def imu_callback(self, stamp, quat_wxyz, linear_acceleration):
-        self.imu_queue.append(
-            (stamp, np.asarray(quat_wxyz, float),
-             np.asarray(linear_acceleration, float))
-        )
+        with self.aux_queue_lock:
+            self.imu_queue.append(
+                (stamp, np.asarray(quat_wxyz, float),
+                 np.asarray(linear_acceleration, float))
+            )
 
     # ----------------------------------------------------------- flushing
     def flush_keyframe_queue(self) -> bool:
-        if not self.keyframe_queue:
-            return False
-        n = min(len(self.keyframe_queue), self.cfg.max_keyframes_per_update)
-        batch = self.keyframe_queue[:n]
-        del self.keyframe_queue[:n]
+        with self.kf_queue_lock:
+            if not self.keyframe_queue:
+                return False
+            n = min(len(self.keyframe_queue), self.cfg.max_keyframes_per_update)
+            batch = self.keyframe_queue[:n]
+            del self.keyframe_queue[:n]
         pending = []
         for i in range(n):
             kf = batch[i]
@@ -216,13 +236,15 @@ class HdlBackend:
         return True
 
     def flush_floor_queue(self) -> bool:
-        floor_queue, self.floor_queue = self.floor_queue, []
+        with self.aux_queue_lock:
+            floor_queue, self.floor_queue = self.floor_queue, []
         if not self.cfg.enable_floor or not floor_queue:
             return False
         if not (self.keyframes or self.new_keyframes):
             # keep for the next cycle (the reference leaves unmatched coeffs
             # queued until keyframes exist)
-            self.floor_queue = floor_queue
+            with self.aux_queue_lock:
+                self.floor_queue = floor_queue + self.floor_queue
             return False
         updated = False
         allk = self.keyframes + self.new_keyframes
@@ -247,7 +269,8 @@ class HdlBackend:
         return updated
 
     def flush_gps_queue(self) -> bool:
-        gps_queue = list(self.gps_queue)
+        with self.aux_queue_lock:
+            gps_queue = list(self.gps_queue)
         if not self.cfg.enable_gps or not gps_queue or not self.keyframes:
             return False
         updated = False
@@ -285,15 +308,18 @@ class HdlBackend:
                 )
             updated = True
         last = self.keyframes[-1].stamp
-        self.gps_queue = [g for g in self.gps_queue if g[0] > last]
+        with self.aux_queue_lock:
+            self.gps_queue = [g for g in self.gps_queue if g[0] > last]
         return updated
 
     def flush_imu_queue(self) -> bool:
-        imu_queue = list(self.imu_queue)
+        with self.aux_queue_lock:
+            imu_queue = list(self.imu_queue)
         if not imu_queue or not self.keyframes:
             return False
         if not (self.cfg.enable_imu_acceleration or self.cfg.enable_imu_orientation):
-            self.imu_queue = []
+            with self.aux_queue_lock:
+                self.imu_queue = []
             return False
         updated = False
         stamps = [m[0] for m in imu_queue]
@@ -320,7 +346,8 @@ class HdlBackend:
                 )
                 updated = True
         last = self.keyframes[-1].stamp
-        self.imu_queue = [m for m in self.imu_queue if m[0] > last]
+        with self.aux_queue_lock:
+            self.imu_queue = [m for m in self.imu_queue if m[0] > last]
         return updated
 
     # --------------------------------------------------------- optimization
@@ -352,7 +379,10 @@ class HdlBackend:
         return ate_rpe_se2([poses2d[k.node_id] for k in kfs],
                            [np.asarray(k.gt_pose, float) for k in kfs])
 
+    @_locked
     def optimization_step(self) -> dict:
+        """The 3 s timer body, under the main lock: flush the four queues,
+        detect loops, solve. Returns stats, or {} when nothing changed."""
         stats = {}
         kf_updated = self.flush_keyframe_queue()
         floor_updated = self.flush_floor_queue()

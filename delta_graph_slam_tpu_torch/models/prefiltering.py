@@ -3,12 +3,14 @@
 Reproduces PrefilteringNodelet::cloud_callback
 (prefiltering_nodelet.cpp:111-164):
 
-  base_link reframe (translation x/y zeroed, :141-142) -> distance filter
-  -> voxel downsample -> outlier removal                         -> 3-D out
+  [deskew] -> base_link reframe (translation x/y zeroed, :141-142) ->
+  distance filter -> voxel downsample -> outlier removal         -> 3-D out
   -> height filter -> normal filter (|n_z|<0.2, k=10) -> flatten -> 2-D out
 
 over fixed-capacity masked clouds on the stage's device; both outputs
-come back compacted. IMU deskewing is not ported yet and raises.
+come back compacted. With ``deskewing`` on, a scan given an angular
+velocity is first rotated point by point (ops/cloud.py:deskew); a scan
+without one passes unchanged, as in the reference.
 """
 
 import dataclasses
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.cloud import (
-    MaskedCloud, compact, distance_filter, flatten_z, height_filter,
+    MaskedCloud, compact, deskew, distance_filter, flatten_z, height_filter,
     make_cloud, transform_cloud,
 )
 from ..ops.normals import normal_filter
@@ -70,8 +72,12 @@ def _resolve_neighbor_method(cfg: PrefilteringConfig) -> PrefilteringConfig:
 
 
 def run(cfg: PrefilteringConfig, cloud: MaskedCloud, base_T,
-        lidar_height: float) -> PrefilterOutput:
-    """The per-scan filter chain (the reference's jitted ``run``)."""
+        lidar_height: float, angular_velocity=None) -> PrefilterOutput:
+    """The per-scan filter chain (the reference's jitted ``run``); the scan
+    is deskewed first when ``cfg.deskewing`` is on and an angular velocity
+    is given."""
+    if cfg.deskewing and angular_velocity is not None:
+        cloud = deskew(cloud, angular_velocity, cfg.scan_period)
     cloud = transform_cloud(cloud, base_T)
     if cfg.use_distance_filter:
         cloud = distance_filter(
@@ -120,13 +126,13 @@ class PrefilteringStage:
 
     def __init__(self, cfg: PrefilteringConfig = PrefilteringConfig(),
                  device=DEFAULT_DEVICE):
-        if cfg.deskewing:
-            raise NotImplementedError("IMU deskewing is not ported yet")
         self.cfg = _resolve_neighbor_method(cfg)
         self.device = resolve_device(device)
 
-    def process(self, points: np.ndarray,
-                base_T: Optional[np.ndarray] = None) -> PrefilterOutput:
+    def process(self, points: np.ndarray, base_T: Optional[np.ndarray] = None,
+                angular_velocity=None) -> PrefilterOutput:
+        """``angular_velocity`` (3,) rad/s: the IMU sample that deskews this
+        scan when the config turns deskewing on; ignored otherwise."""
         cfg = self.cfg
         points = np.asarray(points)[: cfg.raw_capacity]
         cloud = make_cloud(points, capacity=cfg.raw_capacity, device=self.device)
@@ -134,5 +140,8 @@ class PrefilteringStage:
         lidar_height = float(base_T[2, 3])
         base_T[0, 3] = 0.0
         base_T[1, 3] = 0.0
+        if angular_velocity is not None:
+            angular_velocity = torch.from_numpy(
+                np.array(angular_velocity, np.float32)).to(self.device)
         return run(cfg, cloud, torch.from_numpy(base_T).to(self.device),
-                   lidar_height)
+                   lidar_height, angular_velocity)

@@ -87,3 +87,26 @@ def plane_clip(cloud: MaskedCloud, plane, negative: bool = False) -> MaskedCloud
     dist = cloud.points @ plane[:3] + plane[3]
     keep = (dist < 0.0) if negative else (dist > 0.0)
     return MaskedCloud(cloud.points, cloud.mask & keep)
+
+
+def deskew(cloud: MaskedCloud, angular_velocity, scan_period: float = 0.1) -> MaskedCloud:
+    """IMU-based rotational deskew (prefiltering_nodelet.cpp:293-354).
+
+    Point i (acquired at t_i = scan_period * i / N, N the capacity) is
+    rotated by the inverse of the small-angle quaternion
+    delta_q = [1, t_i/2 * (-w)] (the reference negates the angular velocity
+    then applies delta_q.inverse()), normalized.
+    """
+    pts = cloud.points
+    w = -torch.as_tensor(angular_velocity, dtype=pts.dtype, device=pts.device)
+    n = cloud.capacity
+    t = scan_period * torch.arange(n, dtype=pts.dtype, device=pts.device) / n
+    half = 0.5 * t[:, None] * w          # (N,3) vector parts; scalar part 1
+    norm = torch.sqrt(1.0 + (half * half).sum(-1, keepdim=True))
+    qw = 1.0 / norm
+    qv = -half / norm
+    # Rodrigues via the quaternion: p' = p + 2 qw (qv x p) + 2 qv x (qv x p)
+    c1 = torch.linalg.cross(qv, pts, dim=-1)
+    c2 = torch.linalg.cross(qv, c1, dim=-1)
+    out = pts + 2.0 * qw * c1 + 2.0 * c2
+    return MaskedCloud(torch.where(cloud.mask[:, None], out, 0.0), cloud.mask)

@@ -193,7 +193,8 @@ def nn_1_cuda(query, qmask, target, tmask, *, exclude_self=False):
         )
     if err != 0:
         raise RuntimeError(f"nn1 kernel launch failed: cudaError {err}")
-    launches += 1
+    with _lock:     # the threaded runner launches from more than one thread
+        launches += 1
     return d2, idx
 
 

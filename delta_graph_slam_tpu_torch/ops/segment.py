@@ -16,24 +16,34 @@ add in a fixed order on every device, without touching the host:
   solve, whose other scatter-adds need it too).
 """
 
-import contextlib
-
 import torch
 
+from ..utils.device import ProcessSwitch
 
-@contextlib.contextmanager
+
+def _get_deterministic():
+    return (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+
+
+def _put_deterministic(value):
+    torch.use_deterministic_algorithms(value[0], warn_only=value[1])
+
+
+_DETERMINISTIC = ProcessSwitch(_get_deterministic, _put_deterministic, (True, False))
+
+
 def deterministic():
     """Run the enclosed code with torch's deterministic algorithms: the
     float scatter-adds take the sort-based CUDA kernel instead of atomics,
     whose order (and so the rounding of the sum) changes from run to run,
-    and LM's accept/reject near convergence sits on that rounding."""
-    prev = torch.are_deterministic_algorithms_enabled()
-    prev_warn = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(prev, warn_only=prev_warn)
+    and LM's accept/reject near convergence sits on that rounding.
+
+    The setting is process state: it holds while any thread is inside
+    (utils/device.py:ProcessSwitch), and the threaded runner's workers hold
+    it for their whole life, so an op run on another thread meets the same
+    setting whenever a solve starts or ends."""
+    return _DETERMINISTIC.hold()
 
 
 def segment_sum(vals, ids, n, *, sorted_ids=False):

@@ -1,20 +1,28 @@
-"""The registration engine: one Gauss-Newton loop, ICP and GICP heads.
+"""The registration engine: one Gauss-Newton loop, four cost heads.
 
 Each iteration reduces to (correspondence search) -> (per-residual 3x6
 Jacobian with 3x3 information) -> (summed 6x6 normal equations) ->
-(closed SE3 update). Correspondences come from the voxel hash
-(``nn_method='voxel'``, the delta preset) or from the exact 1-NN
-(``'brute'``), which on the card is the Hopper kernel of ops/nn_kernel.py.
+(closed SE3 update). Point correspondences (icp, gicp) come from the voxel
+hash (``nn_method='voxel'``, the delta preset) or from the exact 1-NN
+(``'brute'``), which on the card is the Hopper kernel of ops/nn_kernel.py;
+the voxel heads (vgicp, ndt) look the transformed points up in the target's
+voxel-statistics hash.
 
 Heads:
 - icp   : point-to-point, nearest neighbour, M = I
 - gicp  : fast_gicp semantics - per-point covariances (kNN k=20, 'plane'
           regularized), NN correspondence, M = (C_b + R C_a R^T)^-1
+- vgicp : fast_vgicp - target voxel distributions, 27-neighbourhood,
+          M = (S_v + R C_a R^T)^-1 per contributing voxel
+- ndt   : voxel Gaussians, DIRECT7/DIRECT1 neighbourhoods, M = S_v^-1
+          weighted by Magnusson's exponential score (IRLS)
 
-The vgicp and ndt heads of the JAX package are not ported yet and raise.
+The voxel heads are gathers and batched 3x3 algebra over K = N x offsets
+residuals: plain PyTorch, no kernel of their own.
 """
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -23,10 +31,10 @@ import torch
 from ..geom.se3 import _skew, se3_exp
 from ..ops.cloud import MaskedCloud
 from ..ops.knn import nn_1
-from ..ops.voxel import VoxelHash, build_voxel_hash
+from ..ops.voxel import VoxelHash, build_voxel_hash, voxel_lookup
 from ..ops.voxel_knn import voxel_knn_covariances, voxel_nn
 from .config import RegistrationConfig
-from .covariance import knn_covariances
+from .covariance import knn_covariances, regularize_covariances
 
 # The JAX package forces Precision.HIGHEST on these products; the
 # counterpart on the card is full float32, never TF32.
@@ -38,13 +46,16 @@ class TargetModel(NamedTuple):
     points: torch.Tensor            # (M,3)
     mask: torch.Tensor              # (M,)
     covs: Optional[torch.Tensor]    # (M,3,3) regularized (gicp) or None
-    vh: Optional[VoxelHash]         # NN hash (nn_method='voxel') or None
+    vh: Optional[VoxelHash]         # NN hash (icp/gicp, nn_method='voxel'),
+                                    # statistics hash (vgicp/ndt) or None
+    voxel_covs: Optional[torch.Tensor] = None      # (V,3,3) regularized (vgicp/ndt)
+    voxel_inv_covs: Optional[torch.Tensor] = None  # (V,3,3) inverses (ndt)
 
 
 class SourceModel(NamedTuple):
     points: torch.Tensor            # (N,3)
     mask: torch.Tensor              # (N,)
-    covs: Optional[torch.Tensor]    # (N,3,3) regularized (gicp) or None
+    covs: Optional[torch.Tensor]    # (N,3,3) regularized (gicp/vgicp) or None
 
 
 class RegistrationResult(NamedTuple):
@@ -119,20 +130,39 @@ def _normal_equations(p, r, M, valid):
     return H, torch.cat([b_t, b_w]), (r * Mr).sum()
 
 
+def _ndt_gauss_d2(resolution, outlier_ratio):
+    """PCL NDT mixture coefficients; only d2 shapes the IRLS weight."""
+    c1 = 10.0 * (1.0 - outlier_ratio)
+    c2 = outlier_ratio / resolution**3
+    d3 = -math.log(c2)
+    d1 = -math.log(c1 + c2) - d3
+    return -2.0 * math.log((-math.log(c1 * math.exp(-0.5) + c2) - d3) / d1)
+
+
 def _transform(points, T):
     return points @ T[:3, :3].T + T[:3, 3]
 
 
 def _make_correspondence_fns(cfg: RegistrationConfig):
     """(find, evaluate): ``find`` runs the candidate search and returns
-    (target index, found) per source point; ``evaluate`` turns that state
-    and the current transform into residuals. Splitting them lets the GN
-    loop reuse correspondences across iterations (cfg.nn_reuse)."""
+    (target index, found) per source point, or (voxel slot, hit) per source
+    point and neighbour cell for the voxel heads; ``evaluate`` turns that
+    state and the current transform into residuals. Splitting them lets the
+    GN loop reuse correspondences across iterations (cfg.nn_reuse)."""
+    head = cfg.head
     max_d2 = cfg.max_correspondence_distance**2
     nn_offsets = _neighbor_offsets(cfg.nn_voxel_cells)
+    offsets = _neighbor_offsets(cfg.neighbor_offsets)
+    gauss_d2 = (_ndt_gauss_d2(cfg.resolution, cfg.ndt_outlier_ratio)
+                if head == "ndt" else None)
 
     def find(T, src: SourceModel, tgt: TargetModel):
         p = _transform(src.points, T)
+        if head in ("vgicp", "ndt"):
+            # cells by the float32 reciprocal of the resolution (ops/voxel.py),
+            # where the JAX align divides by it: the same cells at the
+            # presets' power-of-two resolutions
+            return voxel_lookup(tgt.vh, p, src.mask, offsets=offsets)
         if cfg.nn_method == "voxel":
             # candidate-bounded NN over the target hash (tgt.points is the
             # hash's sorted order; see _build_target_model)
@@ -145,16 +175,39 @@ def _make_correspondence_fns(cfg: RegistrationConfig):
     def evaluate(T, st, src: SourceModel, tgt: TargetModel):
         R = T[:3, :3]
         p = _transform(src.points, T)
+        if head in ("vgicp", "ndt"):
+            return _evaluate_voxels(R, p, st, src, tgt)
         j, ok = st
         r = p - tgt.points[j]
         d2 = (r * r).sum(-1)
         valid = ok & src.mask & (d2 < max_d2)
-        if cfg.head == "icp":
+        if head == "icp":
             M = torch.eye(3, dtype=p.dtype, device=p.device).expand(r.shape + (3,))
         else:
             Ca = R @ src.covs @ R.T
             M = inv3x3(tgt.covs[j] + Ca)
         return p, r, M, valid
+
+    def _evaluate_voxels(R, p, st, src: SourceModel, tgt: TargetModel):
+        """K = N x offsets residuals: each source point against the mean of
+        every hit voxel of its neighbourhood (row k*m + o: point k, offset o)."""
+        slot, hit = st
+        m = slot.shape[1]
+        slot_f = slot.reshape(-1)
+        p_rep = p.repeat_interleave(m, dim=0)
+        r = p_rep - tgt.vh.means[slot_f]
+        d2 = (r * r).sum(-1)
+        valid = hit.reshape(-1) & (d2 < max_d2)
+        if head == "ndt":
+            M = tgt.voxel_inv_covs[slot_f]
+            # Magnusson's exponential score: the IRLS weight saturates far
+            # pulls (the same fixed points as PCL NDT's -d1 exp(-d2/2 e2))
+            e2 = torch.einsum("na,nab,nb->n", r, M, r)
+            M = M * torch.exp(-0.5 * gauss_d2 * e2)[:, None, None]
+        else:
+            Ca = R @ src.covs @ R.T
+            M = inv3x3(tgt.voxel_covs[slot_f] + Ca.repeat_interleave(m, dim=0))
+        return p_rep, r, M, valid
 
     return find, evaluate
 
@@ -230,8 +283,25 @@ def _model_cloud(cfg: RegistrationConfig, capacity_voxels: int, cloud: MaskedClo
     return vh.sorted_points, vh.sorted_valid, vh
 
 
+def _voxel_target_model(cfg: RegistrationConfig, capacity_voxels: int,
+                        cloud: MaskedCloud) -> TargetModel:
+    """The vgicp / ndt target: per-voxel statistics at ``cfg.resolution``,
+    covariances regularized to 'plane' (vgicp) or 'floor' (ndt) form; voxels
+    with fewer than 5 points get an identity covariance and, for ndt, a zero
+    inverse (the PCL NDT gate), so they pull nothing."""
+    vh = build_voxel_hash(cloud, cfg.resolution, capacity_voxels, dense_index=True)
+    bad = (vh.counts < 5)[:, None, None]
+    eye = torch.eye(3, dtype=vh.covs.dtype, device=vh.covs.device)
+    covs = regularize_covariances(vh.covs, mode="plane" if cfg.head == "vgicp" else "floor")
+    covs = torch.where(bad, eye, covs)
+    inv = torch.where(bad, 0.0, inv3x3(covs)) if cfg.head == "ndt" else None
+    return TargetModel(cloud.points, cloud.mask, None, vh, covs, inv)
+
+
 def _build_target_model(cfg: RegistrationConfig, capacity_voxels: int,
                         cloud: MaskedCloud) -> TargetModel:
+    if cfg.head in ("vgicp", "ndt"):
+        return _voxel_target_model(cfg, capacity_voxels, cloud)
     points, mask, vh = _model_cloud(cfg, capacity_voxels, cloud)
     covs = _gicp_covs(cfg, vh, cloud) if cfg.head == "gicp" else None
     return TargetModel(points, mask, covs, vh)
@@ -239,7 +309,7 @@ def _build_target_model(cfg: RegistrationConfig, capacity_voxels: int,
 
 def _build_source_model(cfg: RegistrationConfig, capacity_voxels: int,
                         cloud: MaskedCloud) -> SourceModel:
-    if cfg.head != "gicp":
+    if cfg.head not in ("gicp", "vgicp"):
         return SourceModel(cloud.points, cloud.mask, None)
     points, mask, vh = _model_cloud(cfg, capacity_voxels, cloud)
     return SourceModel(points, mask, _gicp_covs(cfg, vh, cloud))
@@ -253,10 +323,7 @@ class Registration:
     def __init__(self, cfg: RegistrationConfig, capacity_voxels: int = 8192):
         if cfg.cov_method == "auto":
             cfg = dataclasses.replace(cfg, cov_method="knn")
-        if cfg.head not in ("icp", "gicp"):
-            raise NotImplementedError(
-                f"registration head {cfg.head!r} ({cfg.method}) is not ported")
-        if cfg.cov_method != "knn":
+        if cfg.head in ("gicp", "vgicp") and cfg.cov_method != "knn":
             raise NotImplementedError(
                 f"cov_method {cfg.cov_method!r} is not ported (only 'knn')")
         if cfg.nn_method not in ("voxel", "brute"):

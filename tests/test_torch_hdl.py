@@ -21,6 +21,7 @@ from delta_graph_slam_tpu.models.floor_detection import (
     FloorDetectionConfig as RFloorConfig, FloorDetectionStage as RFloorStage,
 )
 from delta_graph_slam_tpu.models.hdl_backend import HdlBackend as RHdlBackend
+from delta_graph_slam_tpu.models.hdl_backend import HdlBackendConfig as RHdlBackendConfig
 from delta_graph_slam_tpu.ops import ransac as r_ransac
 from delta_graph_slam_tpu.pipeline.information_matrix import (
     InformationMatrixCalculator as RInf,
@@ -229,17 +230,62 @@ def test_hdl_preset_matches_reference(name):
 
 
 def test_unknown_preset_and_unported_paths_raise():
+    """An unknown preset and 'dense' neighbours still raise; the nodelet's
+    NDT default and the deskewing prefilter construct."""
     with pytest.raises(KeyError, match="hdl_999"):
         p_get_preset("hdl_999")
     cfg = p_get_preset("hdl_400")
-    with pytest.raises(NotImplementedError):         # the nodelet's NDT default
-        HdlBackend(HdlBackendConfig(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        PPipeline(dataclasses.replace(cfg, prefiltering=dataclasses.replace(
-            cfg.prefiltering, deskewing=True)), device="cpu")
     with pytest.raises(NotImplementedError):
         PPipeline(dataclasses.replace(cfg, floor=dataclasses.replace(
             cfg.floor, neighbor_method="dense")), device="cpu")
+    be = HdlBackend(HdlBackendConfig(), device="cpu")
+    assert be.registration.cfg.head == "ndt" and be.registration.cfg.neighbor_offsets == 7
+    pipe = PPipeline(dataclasses.replace(cfg, prefiltering=dataclasses.replace(
+        cfg.prefiltering, deskewing=True)), device="cpu")
+    assert pipe.prefiltering.cfg.deskewing
+
+
+def lap_keyframes(be, make):
+    """Nine keyframes 2.5 m apart out along x and back: the four on the way
+    back revisit the places of the way out (the same scan with other noise),
+    so the loop detector's gates pass (accumulated travel >= 8 m, distance
+    <= 5 m). Flushed into the graph with nothing solved."""
+    rng = np.random.default_rng(3)
+    xs = [0.0, 2.5, 5.0, 7.5, 10.0, 7.5, 5.0, 2.5, 0.0]
+    for k, x in enumerate(xs):
+        odom = np.eye(4)
+        odom[0, 3] = x
+        pts = city_scan(n=900, seed=100 + int(x * 2)) + rng.normal(
+            0, 0.005, (900, 3)).astype(np.float32)
+        be.cloud_callback(0.5 * k, odom, make(pts, capacity=1024))
+    be.flush_keyframe_queue()
+
+
+def test_default_backend_ndt_loops_match_reference():
+    """HdlBackend(HdlBackendConfig()) on both packages: the nodelet-default
+    NDT_OMP registration validates the same loop candidates of a small
+    out-and-back graph, with relative poses within 1e-3 m / 1e-4 rad."""
+    rcfg = dataclasses.replace(RHdlBackendConfig(), inf=RInf(use_const_inf_matrix=True),
+                               keyframe_delta_trans=2.0)
+    pcfg = config_from_reference_fields(dataclasses.asdict(rcfg), HdlBackendConfig)
+    assert pcfg.registration.method == "NDT_OMP" == rcfg.registration.method
+    ref, port = RHdlBackend(rcfg), HdlBackend(pcfg, device="cpu")
+    lap_keyframes(ref, lambda p, capacity: R_ops.make_cloud(p, capacity=capacity))
+    lap_keyframes(port, lambda p, capacity: make_cloud(p, capacity=capacity))
+    n = len(port.new_keyframes)
+    assert n == len(ref.new_keyframes) == 9
+    loops = []
+    for be in (ref, port):
+        be.keyframes, be.new_keyframes = be.new_keyframes[:5], be.new_keyframes[5:]
+        loops.append(be.loop_detector.detect(be.keyframes, be.new_keyframes, be.poses2d))
+    lr, lp = loops
+    assert len(lp) == len(lr) >= 1
+    for a, b in zip(lp, lr):
+        assert (a.key1.stamp, a.key2.stamp) == (b.key1.stamp, b.key2.stamp)
+        np.testing.assert_allclose(a.relative_pose[:3, 3], np.asarray(b.relative_pose)[:3, 3],
+                                   rtol=0, atol=1e-3)
+        dR = a.relative_pose[:3, :3].T @ np.asarray(b.relative_pose)[:3, :3]
+        assert np.linalg.norm(dR - dR.T) / (2 * np.sqrt(2)) < 1e-4
 
 
 @pytest.mark.parametrize("name", ["Pipeline", "HdlBackend", "FloorDetectionStage",

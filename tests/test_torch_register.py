@@ -158,22 +158,34 @@ def test_odometry_state_round_trip(filtered, tmp_path):
     np.testing.assert_allclose(fb.pose, fa.pose, atol=1e-6)
 
 
-def test_unported_methods_raise():
+def test_unported_methods_raise(filtered):
+    """What is still unported raises: 'dense' covariances (ops/moments.py),
+    'dense' neighbours and an unknown preset. The vgicp / ndt heads, the
+    nodelet-default NDT registration and the deskewing prefilter now run."""
     _, reg = _small(p_get_preset)
     for cfg in (dataclasses.replace(reg, cov_method="dense"),
-                dataclasses.replace(reg, method="FAST_VGICP"),
-                dataclasses.replace(reg, method="NDT_OMP")):
+                dataclasses.replace(reg, method="FAST_VGICP", cov_method="dense")):
         with pytest.raises(NotImplementedError):
             PReg(cfg)
     pre, _ = _small(p_get_preset)
     with pytest.raises(NotImplementedError):
         PStage(dataclasses.replace(pre, neighbor_method="dense"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        PStage(dataclasses.replace(pre, deskewing=True), device="cpu")
-    # the hdl presets are ported; their nodelet-default NDT registration and
-    # an unknown preset name still raise
-    assert p_get_preset("hdl_400").hdl is not None
-    with pytest.raises(NotImplementedError):
-        PReg(HdlBackendConfig().registration)
     with pytest.raises(KeyError):
         p_get_preset("hdl_999")
+    assert p_get_preset("hdl_400").hdl is not None
+    (tp, tm), _ = filtered[0]
+    (sp, sm), _ = filtered[1]
+    guess = np.eye(4, dtype=np.float32)
+    guess[0, 3] = 0.25              # NDT converges from near the motion
+    for cfg in (dataclasses.replace(reg, method="FAST_VGICP"),
+                dataclasses.replace(reg, method="NDT_OMP"),
+                HdlBackendConfig().registration):
+        r = PReg(cfg, capacity_voxels=4096)
+        r.set_target(make_cloud(tp, tm))
+        res = r.align(make_cloud(sp, sm), guess)
+        assert res.converged and int(res.num_correspondences) > 1000
+        assert 0.25 < float(res.transformation[0, 3]) < 0.35     # the 0.3 m motion
+    frame = filtered[0][0][0]
+    out = PStage(dataclasses.replace(pre, deskewing=True), device="cpu").process(
+        np.concatenate([frame, frame]), angular_velocity=[0.0, 0.0, 1.0])
+    assert int(out.filtered3d.mask.sum()) > 100

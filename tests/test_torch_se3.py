@@ -5,9 +5,11 @@ CPU: the same numpy inputs through both, function by function.
 The JAX package's own SE3 solves are slow tests (XLA compiles the D = 6
 programs for minutes on the CPU), so functions are held against JAX called
 eagerly, the hub solve against a float64 dense oracle, and whole solves
-against the port's dense backend and one small JAX dense solve. A case
-against the JAX package's ``backend="chain"`` hub solve (about a minute of
-compile) is left out of this file.
+against the port's dense backend and one small JAX dense solve. The JAX
+package's ``backend="chain"`` hub solve is compiled once (about 90 s) for
+section (h): the hdl backend's warm cycles and a cold lap solved to
+convergence, both at one set of capacities so the compiled program is
+shared.
 """
 
 import functools
@@ -33,6 +35,7 @@ from delta_graph_slam_tpu_torch.graph.graph_io import load_g2o_se3, save_g2o_se3
 from delta_graph_slam_tpu_torch.graph.hub_solve import chain_hub_solve, hub_overflow
 from delta_graph_slam_tpu_torch.interop import se3_builder_from_reference
 from delta_graph_slam_tpu_torch.ops.segment import deterministic
+from delta_graph_slam_tpu_torch.pipeline.information_matrix import InformationMatrixCalculator
 
 from test_torch_card import hub_dense_oracle, hub_linsys, hub_system  # noqa: E402
 
@@ -628,3 +631,139 @@ def test_g2o_se3_round_trip_with_reference(tmp_path):
     # 12 significant digits in the text
     np.testing.assert_allclose(np.stack(back.poses), np.stack(port.poses), rtol=1e-11,
                                atol=1e-11)
+
+
+# ------------------------------------- (h) the hdl backend's solves, chain
+
+# the hdl backend's solver (HdlBackendConfig.solver) with a budget of 300
+# iterations, which no solve here reaches, and one packing for every graph
+# of this section, so the JAX chain program compiles once
+HDL_SOLVER = dict(backend="chain", chi2_rel_tol=1e-6, max_iterations=300)
+HDL_CAPS = dict(v_capacity=64, e_capacity=128, prior_capacity=64)
+HDL_OFFRANK = 64
+
+
+def hdl_messages(n, seed=7, odo_noise=(0.02, 0.003), loops=()):
+    """What an hdl drive feeds its backend, in numpy: odometry poses with
+    noise, fitness-based odometry informations (the reference's weights at
+    fitness 0.02-0.1), the floor seen 1.8 m below every keyframe (the
+    floor detector's coefficients, with noise) and loop measurements
+    (i, j) from the ground truth. Ground truth: 2 m steps along a gentle
+    curve, level, then back along it for the second half when ``loops``
+    are asked for."""
+    rng = np.random.default_rng(seed)
+    half = n // 2 if loops else n
+    gt = []
+    for k in range(n):
+        u = k if k < half else 2 * half - 1 - k
+        M = np.eye(4)
+        M[:3, :3] = rot_z(0.02 * u + (np.pi if k >= half else 0.0))
+        M[:3, 3] = [2.0 * u, 0.02 * u * u + (1.0 if k >= half else 0.0), 0.0]
+        gt.append(M)
+    odom = [gt[0]]
+    for k in range(1, n):
+        noise = np.eye(4)
+        noise[:3, :3] = (rot_z(rng.normal(0, odo_noise[1])) @ rot_x(rng.normal(0, 0.002))
+                         @ rot_y(rng.normal(0, 0.002)))
+        noise[:3, 3] = rng.normal(0, odo_noise[0], 3)
+        odom.append(odom[-1] @ np.linalg.inv(gt[k - 1]) @ gt[k] @ noise)
+    cal = InformationMatrixCalculator()
+    infos = []
+    for _ in range(n):
+        wx, wq = cal._weights(float(rng.uniform(0.02, 0.1)))
+        infos.append(np.diag([1 / wx] * 3 + [1 / wq] * 3))
+    floors = []
+    for k in range(n):
+        nl = gt[k][:3, :3].T @ np.array([0.0, 0.0, 1.0]) + rng.normal(0, 0.002, 3)
+        floors.append(np.concatenate([nl / np.linalg.norm(nl), [1.8 + rng.normal(0, 0.01)]]))
+    loop_meas = [(i, j, np.linalg.inv(gt[i]) @ gt[j]) for i, j in loops]
+    return odom, infos, floors, loop_meas
+
+
+def add_keyframes(b, msgs, lo, hi, nodes):
+    """Keyframes lo..hi-1 as HdlBackend.flush_keyframe_queue and
+    flush_floor_queue add them: the first behind a fixed anchor, each new
+    vertex at its raw odometry pose, an odometry edge from the previous
+    keyframe, a floor edge (information I / 10^2) to the one plane."""
+    odom, infos, floors, _ = msgs
+    for k in range(lo, hi):
+        node = b.add_se3_node(odom[k])
+        if k == 0:
+            anchor = b.add_se3_node(np.eye(4), fixed=True)
+            b.add_se3_edge(anchor, node, np.eye(4), np.eye(6))
+            nodes["plane"] = b.add_plane_node([0.0, 0.0, 1.0, 0.0])
+        else:
+            b.add_se3_edge(nodes[k - 1], node, np.linalg.inv(odom[k - 1]) @ odom[k],
+                           infos[k])
+        nodes[k] = node
+        b.add_se3_plane_edge(node, nodes["plane"], floors[k], np.eye(3) / 100.0)
+
+
+def both_solves(rb, pb):
+    """One hdl-backend solve of the same graph in each package (the JAX
+    package's chain backend and the port's), each writing its optimum back
+    into its own builder as the backend's update_from does. Returns the two
+    SolverStats."""
+    rcfg, pcfg = RConfig(**HDL_SOLVER), SolverConfig(**HDL_SOLVER)
+    (rp, rpl, rpt), rs = r_optimize_se3(rb.to_arrays(**HDL_CAPS), level=0, config=rcfg,
+                                        offrank_floor=HDL_OFFRANK)
+    (pp, ppl, ppt), ps = optimize_se3(pb.to_arrays(**HDL_CAPS), level=0, config=pcfg,
+                                      offrank_floor=HDL_OFFRANK,
+                                      n_offchain=pb.count_offchain())
+    rb.update_from(np.asarray(rp), np.asarray(rpl), np.asarray(rpt))
+    pb.update_from(pp, ppl, ppt)
+    return rs, ps
+
+
+def test_hdl_warm_cycles_iterate_as_the_reference():
+    """ROADMAP Queue 3 item 1: the LM iterations of the hdl backend's warm
+    cycles. Ten keyframes, then four more a cycle up to 34, each cycle
+    warm-started from the previous optimum with the new vertices at their
+    raw odometry poses: the JAX package's chain solve and the port's take
+    the same number of iterations every cycle and end at the same chi2
+    (1e-9 relative) and poses (1e-9 m). The count is the reference's own
+    behaviour; what the card's drive spends (19-94 a cycle) comes with that
+    drive's graph, not with the port's solver."""
+    msgs = hdl_messages(34)
+    rb, pb = r_g.SE3GraphBuilder(), PBuilder()
+    rn, pn = {}, {}
+    lo, cycles = 0, []
+    for m in [10] + [4] * 6:
+        add_keyframes(rb, msgs, lo, lo + m, rn)
+        add_keyframes(pb, msgs, lo, lo + m, pn)
+        lo += m
+        rs, ps = both_solves(rb, pb)
+        cycles.append((int(rs.iterations), int(ps.iterations)))
+        np.testing.assert_allclose(float(ps.chi2_initial), float(rs.chi2_initial), rtol=1e-9)
+        np.testing.assert_allclose(float(ps.chi2_final), float(rs.chi2_final), rtol=1e-9)
+        np.testing.assert_allclose(np.stack(pb.poses), np.stack(rb.poses), rtol=0, atol=1e-9)
+    assert [p for _, p in cycles] == [r for r, _ in cycles], cycles
+    # every cycle stops on the relative-gain rule, well inside the budget
+    assert all(2 <= r < 30 for r, _ in cycles), cycles
+
+
+def test_hdl_lap_solve_matches_reference_two_sided():
+    """ROADMAP Queue 3 item 2: a 60-node out-and-back hdl graph (the floor
+    hub with 60 se3plane edges, 5 Huber loops, odometry drifting 5 cm and
+    5 mrad a step), solved cold from the odometry by both packages with the
+    same budget of 300 iterations, which neither reaches: the final chi2
+    agree within 1e-6 relative both ways and the poses within 1e-6 m, so
+    the port's chain + hub solve reaches the reference's optimum."""
+    n = 60
+    loops = [(n - 1 - k, k) for k in range(2, 27, 6)]
+    msgs = hdl_messages(n, seed=11, odo_noise=(0.05, 0.005), loops=loops)
+    rb, pb = r_g.SE3GraphBuilder(), PBuilder()
+    rn, pn = {}, {}
+    add_keyframes(rb, msgs, 0, n, rn)
+    add_keyframes(pb, msgs, 0, n, pn)
+    for b, nodes in ((rb, rn), (pb, pn)):
+        for i, j, meas in msgs[3]:
+            b.add_se3_edge(nodes[i], nodes[j], meas, np.eye(6) * 50, kernel="Huber", delta=1.0)
+    rs, ps = both_solves(rb, pb)
+    assert 3 < int(rs.iterations) < 300 and 3 < int(ps.iterations) < 300
+    assert abs(int(ps.iterations) - int(rs.iterations)) <= 2
+    chi2_p, chi2_r = float(ps.chi2_final), float(rs.chi2_final)
+    assert chi2_p < 1e-2 * float(ps.chi2_initial)
+    assert abs(chi2_p - chi2_r) <= 1e-6 * chi2_r, (chi2_p, chi2_r)
+    np.testing.assert_allclose(np.stack(pb.poses), np.stack(rb.poses), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np.stack(pb.planes), np.stack(rb.planes), rtol=0, atol=1e-6)
