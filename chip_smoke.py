@@ -80,7 +80,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      to the serial drive of the same phase (the largest odometry gap
      printed), ATE <= 1.0 m; frames/s to the last on_points return and to
      finish(), optimization_step ms a call and calls, and the lock_wait.*
-     times printed beside the serial drive's.
+     times printed beside the serial drive's;
+ 13. host runtime: the native host I/O library built with g++ from
+     native/pointcloud_io.cpp into _build/ (its loaded path checked), a
+     131072-point PCD round trip, phase 4's frames as KITTI .bin files and
+     a scan spool, bitwise; the first 120 frames of phase 8's drive recorded
+     to a bag (points and gps topics) with the city's OSM XML in a file,
+     replayed through ``cli.main(["run", ...])`` on the card with
+     --save-map, --dump-graph, --save-viz and --eval (rc 0, every file
+     written, keyframes and final poses bitwise equal to a Pipeline drive of
+     the same messages), and convert-kitti on 8 of the .bin files; phase 8's
+     drive cut after 130 frames: Pipeline.save_state, a fresh Pipeline,
+     load_state (poses within 1e-6 m), the remaining 120 frames with a 10 Hz
+     Map2OdomPublisher (map->odom equal to the lifted trans_odom2map, ATE
+     <= 1.0 m, printed beside phase 8's); radius_moments at 32768 x 32768
+     (phase 4's first scan, r 0.8 m, chunk 4096) on the card against the
+     port's plain CPU run (counts equal away from r^2, means and
+     covariances within 1e-5), then phase 4's frames with
+     neighbor_method='dense' and cov_method='dense' twice (>= 90 %
+     converged, drift <= 5 % of the path, odometry bitwise equal), frames/s
+     and ms/frame beside phase 4's voxel drive.
 Phase 5 also runs a deskewed variant (deskewing on, a constant angular
 velocity fed through on_imu), card against CPU.
 The line before the last is the kernel report, the last line the result.
@@ -1845,6 +1864,395 @@ def run_threaded(report, world, frames, gts, serial_city, serial_hdl):
     return launches
 
 
+# ------------------------------------------- phase 13: the host runtime
+
+CLI_FRAMES = 120          # phase 8's frames recorded to a bag for the CLI run
+RESUME_AT = CITY_WARMUP + 120   # frames driven before the checkpoint
+KITTI_FILES = 8
+DENSE_RADIUS = 0.8
+DENSE_CHUNK = 4096
+
+
+def pcio_check(report, frames, work):
+    """The native host I/O library built from the port's source: its path,
+    a 131072-point PCD round trip, KITTI .bin files and a scan spool of
+    phase 4's frames, all bitwise."""
+    from delta_graph_slam_tpu_torch import native
+    from delta_graph_slam_tpu_torch.io.lidar_sim import save_kitti_bin
+    from delta_graph_slam_tpu_torch.io.pcd import load_pcd
+
+    t0 = time.perf_counter()
+    lib = native.load_library(build=True)
+    build_s = time.perf_counter() - t0
+    root = Path(__file__).resolve().parent
+    path = Path(lib._name) if lib is not None else None
+    check(path is not None and path == native.library_path()
+          and path.parent == root / "delta_graph_slam_tpu_torch" / "_build",
+          f"libpcio not loaded from the port's _build/: {path}")
+    print(f"libpcio: {path.relative_to(root)} (built and loaded in {build_s:.2f} s)",
+          flush=True)
+    pts = np.random.default_rng(13).uniform(-80, 80, (131072, 3)).astype(np.float32)
+    native.save_pcd(work / "cloud.pcd", pts)
+    back = native.load_pcd(work / "cloud.pcd")
+    check(np.array_equal(back, pts) and np.array_equal(load_pcd(work / "cloud.pcd"), pts),
+          "the 131072-point PCD round trip differs")
+    bins = []
+    for k, fr in enumerate(frames):
+        bins.append(work / "velodyne" / f"{k:010d}.bin")
+        bins[-1].parent.mkdir(exist_ok=True)
+        save_kitti_bin(bins[-1], fr.points)
+    check(all(np.array_equal(native.load_kitti_bin(b), fr.points)
+              for b, fr in zip(bins, frames)), "KITTI .bin read back differs")
+    t0 = time.perf_counter()
+    w = native.ScanSpool(str(work / "scans.spool"), "w")
+    for fr in frames:
+        w.append(fr.stamp, fr.points)
+    w.close()
+    write_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    t0 = time.perf_counter()
+    r = native.ScanSpool(str(work / "scans.spool"))
+    got = [(r.stamp(i), r.read(i)) for i in range(len(r))]
+    r.close()
+    read_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    check(len(got) == len(frames) and all(
+        s == fr.stamp and np.array_equal(p, fr.points) for (s, p), fr in zip(got, frames)),
+        "the scan spool read back differs")
+    print(f"PCD 131072 points bitwise; {len(frames)} KITTI .bin files bitwise; spool "
+          f"write {write_ms:.3f} ms/frame, read {read_ms:.3f} ms/frame "
+          f"({np.mean([len(f.points) for f in frames]):.0f} points a frame)", flush=True)
+    report["pcio"] = {"library": str(path.relative_to(root)), "build_s": build_s,
+                      "spool_write_ms_per_frame": write_ms,
+                      "spool_read_ms_per_frame": read_ms}
+    return bins
+
+
+def record_drive(world, frames, work):
+    """The first CLI_FRAMES frames of phase 8's drive as a bag (points and
+    gps topics; each GPS stamp 1 ms before its scan: Bag.from_npz gathers
+    topics as a set, so equal stamps of two topics would reorder with the
+    interpreter's hash seed) and the city's OSM XML as a file."""
+    from delta_graph_slam_tpu_torch.io.bag import Bag, Message
+
+    msgs = []
+    for fr in frames[:CLI_FRAMES]:
+        msgs.append(Message(fr.stamp - 1e-3, "gps", np.asarray(fr.gps, float)))
+        msgs.append(Message(fr.stamp, "points", fr.points))
+    Bag(msgs).save_npz(work / "drive.npz")
+    (work / "city.osm").write_text(world.osm_xml())
+    return work / "drive.npz", work / "city.osm"
+
+
+def cli_drive(report, world, frames, bins, work, device="cuda"):
+    """``cli run`` on the recorded drive, held bitwise to a Pipeline drive of
+    the same messages; then ``convert-kitti`` on KITTI_FILES .bin files."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from delta_graph_slam_tpu_torch import cli
+    from delta_graph_slam_tpu_torch.buildings import StaticProvider
+    from delta_graph_slam_tpu_torch.config import get_preset
+    from delta_graph_slam_tpu_torch.io.bag import Bag
+    from delta_graph_slam_tpu_torch.ops import nn_kernel
+    from delta_graph_slam_tpu_torch.pipeline.runner import Pipeline
+
+    bag, osm = record_drive(world, frames, work)
+    out = work / "cli_out"
+    torch.cuda.synchronize()
+    nn_kernel.launches = 0
+    captured = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(captured):
+        rc = cli.main(["run", "--preset", "delta", "--bag", str(bag), "--osm-file", str(osm),
+                       "--save-map", str(out), "--dump-graph", str(out),
+                       "--save-viz", str(out), "--eval"]
+                      + ([] if device == "cuda" else ["--device", device]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = nn_kernel.launches
+    text = captured.getvalue()
+    check(rc == 0, f"cli run returned {rc}: {text[-2000:]}")
+    summary, _ = json.JSONDecoder().raw_decode(text)
+    files = {n: (out / n).stat().st_size if (out / n).exists() else 0
+             for n in ("map.pcd", "b_map.pcd", "aligned_b_map.pcd", "graph.g2o",
+                       "graph.npz", "markers.json", "markers.svg")}
+
+    pipe = Pipeline(get_preset("delta"), building_provider=StaticProvider(osm.read_text()),
+                    device=device)
+    t0 = time.perf_counter()
+    for m in Bag.from_npz(bag):
+        if m.topic == "gps":
+            pipe.on_gps(m.stamp, *np.asarray(m.data).tolist())
+        else:
+            pipe.on_points(m.stamp, np.asarray(m.data))
+    pipe.finish()
+    torch.cuda.synchronize()
+    wall_direct = time.perf_counter() - t0
+    g = np.load(out / "graph.npz")
+    direct = pipe.backend.poses
+    same = (summary["keyframes"] == len(pipe.backend.keyframes)
+            and int(g["vmask"].sum()) == len(direct)
+            and np.array_equal(g["poses"][: len(direct)], direct))
+    timing = summary["timing"]
+    print(f"cli run: {CLI_FRAMES} frames in {wall:.3f} s of cli.main (exports included): "
+          f"{CLI_FRAMES / wall:.3f} frames/s; the direct Pipeline drive "
+          f"{CLI_FRAMES / wall_direct:.3f} frames/s; keyframes {summary['keyframes']}, "
+          f"final poses bitwise equal to the direct drive {same}; nn1 launches {launches}",
+          flush=True)
+    print("cli timing summary (mean ms): " + ", ".join(
+        f"{k} {v['mean_ms']:.3f} x{v['count']}" for k, v in timing.items()), flush=True)
+    print(f"cli files (bytes): {files}", flush=True)
+    check(all(files.values()), f"cli run wrote {files}")
+    check(same, "the cli run's keyframes or poses differ from the direct Pipeline drive")
+    check(launches > 0, "the cli run launched no nn1 kernel")
+
+    kitti = work / "kitti"
+    kitti.mkdir()
+    for b in bins:
+        shutil.copy(b, kitti / b.name)
+    rc = cli.main(["convert-kitti", "--velodyne-dir", str(kitti),
+                   "--out", str(work / "kitti.npz")])
+    conv = Bag.from_npz(work / "kitti.npz")
+    held = (rc == 0 and len(conv) == len(bins) and all(
+        np.array_equal(np.asarray(m.data), np.fromfile(b, np.float32).reshape(-1, 4)[:, :3])
+        for m, b in zip(conv, bins)))
+    print(f"convert-kitti: {len(conv)} scans, bitwise the .bin files {held}", flush=True)
+    check(held, "convert-kitti's bag differs from the .bin files")
+    report["cli"] = {"frames": CLI_FRAMES, "wall_s": wall, "frames_per_s": CLI_FRAMES / wall,
+                     "direct_frames_per_s": CLI_FRAMES / wall_direct,
+                     "keyframes": summary["keyframes"], "bitwise_equal_direct": same,
+                     "nn1_launches": launches, "timing": timing, "files": files,
+                     "metrics": json.JSONDecoder().raw_decode(
+                         text[text.index('{\n  "metrics"'):])[0]["metrics"]}
+    return launches
+
+
+def checkpoint_drive(report, world, frames, gts, work, device="cuda"):
+    """Phase 8's drive cut at RESUME_AT: save_state, a fresh Pipeline on the
+    card, load_state, the remaining frames with a 10 Hz Map2OdomPublisher."""
+    import torch
+
+    from delta_graph_slam_tpu_torch.buildings import StaticProvider
+    from delta_graph_slam_tpu_torch.config import get_preset
+    from delta_graph_slam_tpu_torch.geom.host import transform_2d_to_3d_np
+    from delta_graph_slam_tpu_torch.io.tf_table import TransformTable
+    from delta_graph_slam_tpu_torch.ops import nn_kernel
+    from delta_graph_slam_tpu_torch.pipeline.map2odom import Map2OdomPublisher
+    from delta_graph_slam_tpu_torch.pipeline.runner import Pipeline
+
+    cfg = get_preset("delta")
+    launches = nn_kernel.launches
+    pipe = Pipeline(cfg, building_provider=StaticProvider(world.osm_xml()), device=device)
+    drive(pipe, frames[:RESUME_AT], gts[:RESUME_AT])
+    pipe.finish()
+    path = work / "state.npz"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.save_state(path)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    size_mb = sum(p.stat().st_size for p in work.glob("state.npz*")) / 2**20
+
+    resumed = Pipeline(cfg, building_provider=StaticProvider(world.osm_xml()), device=device)
+    t0 = time.perf_counter()
+    cap = cfg.prefiltering.out_capacity
+    resumed.load_state(path, cloud_capacity=cap, flat_capacity=cap)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    b1, b2 = pipe.backend, resumed.backend
+    gap = float(np.abs(b2.poses - b1.poses).max())
+    print(f"checkpoint after {RESUME_AT} frames: {len(b1.keyframes)} keyframes, "
+          f"{len(b1.buildings_manager.buildings)} buildings; save {save_ms:.1f} ms, "
+          f"load {load_ms:.1f} ms, {size_mb:.2f} MB; poses after the load within "
+          f"{gap:.3g} m of the saved pipeline's (limit 1e-6)", flush=True)
+    check(len(b2.keyframes) == len(b1.keyframes) and gap <= 1e-6,
+          f"the loaded state differs: {len(b2.keyframes)} keyframes, pose gap {gap}")
+
+    table = TransformTable()
+    pub = Map2OdomPublisher(table, b2, rate_hz=10.0).start()
+    try:
+        drive(resumed, frames[RESUME_AT:], gts[RESUME_AT:])
+        resumed.finish()
+    finally:
+        pub.stop()
+    check(not pub._thread.is_alive(), "the map2odom thread did not stop")
+    pub.publish_once()
+    lifted = transform_2d_to_3d_np(b2.trans_odom2map)
+    check(np.array_equal(table.lookup("map", "odom"), lifted),
+          "map->odom differs from the lifted trans_odom2map")
+    m = resumed.evaluate()
+    ate = report["buildings"]["metrics"]["ATE_mean"]
+    print(f"resumed drive: {len(b2.keyframes)} keyframes, ATE {m['ATE_mean']:.4f} m against "
+          f"the uninterrupted drive's {ate:.4f} m (phase 8; difference "
+          f"{m['ATE_mean'] - ate:+.4f} m: the RANSAC generators restart and the "
+          f"restored building manager downloads no new buildings, as in the reference); "
+          f"map->odom equal to the lifted trans_odom2map", flush=True)
+    report["checkpoint"] = {"resume_at": RESUME_AT, "save_ms": save_ms, "load_ms": load_ms,
+                            "state_mb": size_mb, "pose_gap_m": gap,
+                            "keyframes_saved": len(b1.keyframes),
+                            "keyframes_final": len(b2.keyframes), "metrics": m,
+                            "uninterrupted_ate_m": ate}
+    check(m["ATE_mean"] <= 1.0, f"resumed ATE {m['ATE_mean']} m > 1.0 m")
+    return nn_kernel.launches - launches
+
+
+def chunk_centres(cloud, chunk):
+    """(N,3) float64: per query, the centre radius_moments centres its chunk
+    on (the masked centroid of its Morton-ordered chunk of queries)."""
+    import torch
+
+    from delta_graph_slam_tpu_torch.ops.moments import morton_keys
+
+    pts, mask = cloud.points.double().numpy(), cloud.mask.numpy()
+    order = torch.argsort(morton_keys(cloud.points, cloud.mask), stable=True).numpy()
+    centre = np.zeros_like(pts)
+    for c0 in range(0, len(pts), chunk):
+        idx = order[c0:c0 + chunk]
+        if mask[idx].any():
+            centre[idx] = pts[idx][mask[idx]].mean(0)
+    return centre
+
+
+def boundary_queries(pts, mask, centre, r2, block=1024, device="cuda"):
+    """Valid queries with a valid support point (the cloud itself) whose
+    squared distance (float64 on ``device``) lies within the float32
+    rounding of radius_moments' expansion |qc|^2 + |xc|^2 - 2 xc.qc about
+    the query's chunk centre: 1e-5 of r2 plus 1e-6 of |qc|^2 + |xc|^2 (the
+    expansion's error is a few float32 ulps of those terms)."""
+    import torch
+
+    p = torch.from_numpy(pts).to(device).double()
+    c = torch.from_numpy(centre).to(device)
+    m = torch.from_numpy(mask).to(device)
+    out = torch.zeros(len(pts), dtype=torch.bool, device=device)
+    for c0 in range(0, len(pts), block):
+        q, cq = p[c0:c0 + block], c[c0:c0 + block]
+        d2 = ((q[:, None, :] - p[None, :, :]) ** 2).sum(-1)
+        terms = (((q - cq) ** 2).sum(-1)[:, None]
+                 + ((p[None, :, :] - cq[:, None, :]) ** 2).sum(-1))
+        out[c0:c0 + block] = (((d2 - r2).abs() <= 1e-5 * r2 + 1e-6 * terms)
+                              & m[None, :]).any(1)
+    return (out & m).cpu().numpy()
+
+
+def dense_check(report, frames, device="cuda"):
+    """radius_moments on the card against the port's plain CPU run at the
+    front end's shape, then phase 4's frames with the 'dense' methods."""
+    import torch
+
+    from delta_graph_slam_tpu_torch.config import get_preset
+    from delta_graph_slam_tpu_torch.models.prefiltering import PrefilteringStage
+    from delta_graph_slam_tpu_torch.ops import nn_kernel
+    from delta_graph_slam_tpu_torch.ops.cloud import MaskedCloud
+    from delta_graph_slam_tpu_torch.ops.moments import radius_moments
+
+    cfg = get_preset("delta")
+    scan = PrefilteringStage(cfg.prefiltering, device=device).process(frames[0].points)
+    cloud = scan.filtered3d
+    pts, mask = cloud.points.cpu().numpy(), cloud.mask.cpu().numpy()
+
+    def card():
+        return radius_moments(cloud, cloud, DENSE_RADIUS, chunk=DENSE_CHUNK)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = card()
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    ms = cuda_ms(card, reps=10, warmup=2)
+    t0 = time.perf_counter()
+    cpu_cloud = MaskedCloud(torch.from_numpy(pts), torch.from_numpy(mask))
+    want = radius_moments(cpu_cloud, cpu_cloud, DENSE_RADIUS, chunk=DENSE_CHUNK)
+    cpu_s = time.perf_counter() - t0
+    r2 = float(np.float32(DENSE_RADIUS) ** 2)
+    centre = chunk_centres(cpu_cloud, DENSE_CHUNK)
+    edge = boundary_queries(pts, mask, centre, r2, device=device)
+    cnt_g, cnt_w = got.count.cpu().numpy(), want.count.numpy()
+    held = mask & ~edge
+    count_diff = int((cnt_g != cnt_w)[held].sum())
+    v = held & (cnt_w >= 1)
+    # float32 rounds the raw moments about the chunk centre, so both runs
+    # carry an error that scales with the neighbourhood's second moment
+    # about it (s2, up to ~3,500 m^2 at a scan's extent; float32 against
+    # float64 on the CPU: 6.8e-7 of s2): held within 1e-5 of max(1, s2)
+    s2 = (((want.mean.double().numpy() - centre) ** 2).sum(1)
+          + np.trace(want.cov.double().numpy(), axis1=1, axis2=2))
+    mean_d = np.abs(got.mean.cpu().numpy() - want.mean.numpy()).max(1)
+    cov_d = np.abs(got.cov.cpu().numpy() - want.cov.numpy()).max((1, 2))
+    mean_rel = float((mean_d / np.sqrt(np.maximum(s2, 1.0)))[v].max())
+    cov_rel = float((cov_d / np.maximum(s2, 1.0))[v].max())
+    print(f"radius_moments {int(mask.sum())} x {int(mask.sum())} valid of {len(pts)}^2 slots, "
+          f"r {DENSE_RADIUS} m, chunk {DENSE_CHUNK}: card {ms:.3f} ms (median of 10, CUDA "
+          f"events), peak {peak_mb:.0f} MiB above the inputs; plain CPU run {cpu_s:.2f} s; "
+          f"{int(edge.sum())} queries with a pair within float32 rounding of r^2 left "
+          f"out; count "
+          f"differences {count_diff}; mean error {mean_d[v].max():.3g} m ({mean_rel:.3g} of "
+          f"max(1, sqrt(s2)), limit 1e-5), cov error {cov_d[v].max():.3g} ({cov_rel:.3g} of "
+          f"max(1, s2), limit 1e-5); mean count {cnt_w[mask].mean():.1f}", flush=True)
+    row = {"cuda_ms": ms, "peak_mib": peak_mb, "cpu_s": cpu_s,
+           "boundary_queries": int(edge.sum()), "count_differences": count_diff,
+           "mean_err_m": float(mean_d[v].max()), "mean_err_rel": mean_rel,
+           "cov_err": float(cov_d[v].max()), "cov_err_rel": cov_rel,
+           "valid": int(mask.sum()), "mean_count": float(cnt_w[mask].mean())}
+    report["dense"] = row
+    check(count_diff == 0, f"{count_diff} counts differ between the card and the CPU")
+    check(mean_rel <= 1e-5, f"radius_moments means differ by {mean_rel} of sqrt(s2)")
+    check(cov_rel <= 1e-5, f"radius_moments covariances differ by {cov_rel} of s2")
+
+    dense_cfg = dataclasses.replace(
+        cfg, prefiltering=dataclasses.replace(cfg.prefiltering, neighbor_method="dense"),
+        odometry=dataclasses.replace(cfg.odometry, registration=dataclasses.replace(
+            cfg.odometry.registration, cov_method="dense")))
+    launches = nn_kernel.launches
+    runs = []
+    for _ in range(2):
+        pipe = make_pipeline(dense_cfg, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        odo = drive(pipe, frames)
+        pipe.finish()
+        torch.cuda.synchronize()
+        runs.append((odo, pipe, time.perf_counter() - t0))
+    (odo, pipe, wall), (odo_2, _, wall_2) = runs
+    same = all(np.array_equal(a.pose, b.pose) for a, b in zip(odo, odo_2))
+    converged, drift, path, iters = odometry_quality(odo, rel_gt(frames))
+    per_frame = {k: v["total_s"] * 1e3 / len(frames)
+                 for k, v in pipe.timing_summary().items()}
+    voxel = report["slice"]
+    print(f"dense front end, {len(frames)} frames: {len(frames) / wall:.3f} frames/s "
+          f"(again {len(frames) / wall_2:.3f}) against the voxel drive's "
+          f"{voxel['frames_per_s']:.3f} (phase 4); ms/frame " + ", ".join(
+              f"{k} {per_frame.get(k, 0.0):.3f} "
+              f"(voxel {voxel['ms_per_frame'].get(k, 0.0):.3f})"
+              for k in ("prefiltering", "odometry", "backend_enqueue", "optimization_step")),
+          flush=True)
+    print(f"dense front end: converged {converged:.3f}, drift {drift:.4f} m over "
+          f"{path:.3f} m ({100 * drift / path:.3f}%), GN iterations/frame {iters:.2f}, "
+          f"odometry bitwise equal across the two runs {same}", flush=True)
+    row.update(frames_per_s=len(frames) / wall, repeat_frames_per_s=len(frames) / wall_2,
+               ms_per_frame=per_frame, converged=converged, drift_m=drift, path_m=path,
+               gn_iterations=iters, repeatable=same)
+    check(converged >= 0.9, f"dense front end: only {converged:.3f} of frames converged")
+    check(drift <= 0.05 * path, f"dense front end: drift {drift:.3f} m > 5% of {path:.3f} m")
+    check(same, "the dense front end's odometry differs between two runs")
+    return nn_kernel.launches - launches
+
+
+def run_host_runtime(report, slice_frames, world, city, city_gts, device="cuda"):
+    """Phase 13: libpcio, the command line on a recorded drive, a checkpoint
+    in the middle of the building drive, and the 'dense' methods."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        work = Path(d)
+        bins = pcio_check(report, slice_frames, work)
+        launches = cli_drive(report, world, city, bins[:KITTI_FILES], work, device)
+        launches += checkpoint_drive(report, world, city, city_gts, work, device)
+    launches += dense_check(report, slice_frames, device)
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="directory for a JSON report")
@@ -1934,6 +2342,11 @@ def main():
     t = phase(f"threaded runner: the building drive and the hdl_400 drive, "
               f"{CITY_FRAMES} frames each")
     launches += run_threaded(report, world, city, city_gts, serial_city, serial_hdl)
+    print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
+
+    t = phase(f"host runtime: libpcio, the command line on {CLI_FRAMES} recorded frames, "
+              f"a checkpoint after {RESUME_AT} frames, the 'dense' methods")
+    launches += run_host_runtime(report, slice_frames, world, city, city_gts)
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
     if args.out:

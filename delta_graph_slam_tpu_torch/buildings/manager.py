@@ -216,12 +216,9 @@ class BuildingManager:
             in_range.append(self._new_building(way_id, pts))
         return in_range
 
-    def _new_building(self, way_id, pts) -> Building:
-        # pose = bbox center, zero yaw (:259-284)
-        center = (pts.min(0) + pts.max(0)) / 2.0
-        pose = np.array([center[0], center[1], 0.0])
-
-        # outline lines + 2 cm interpolated cloud (:166-196)
+    def outline(self, pts):
+        """The outline lines and 2 cm interpolated cloud (:166-196) of a
+        building's corner polygon ``pts`` (P,2), on the manager's device."""
         a = pts[:-1]
         b = pts[1:]
         lines = make_lines(a, b, capacity=self.line_capacity, device=self.device)
@@ -238,6 +235,13 @@ class BuildingManager:
         else:
             cloud = MaskedCloud(torch.zeros((1, 3), device=self.device),
                                 torch.zeros(1, dtype=torch.bool, device=self.device))
+        return lines, cloud
+
+    def _new_building(self, way_id, pts) -> Building:
+        # pose = bbox center, zero yaw (:259-284)
+        center = (pts.min(0) + pts.max(0)) / 2.0
+        pose = np.array([center[0], center[1], 0.0])
+        lines, cloud = self.outline(pts)
 
         node_id = None
         prior_ids = ()

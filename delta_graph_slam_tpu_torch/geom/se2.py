@@ -13,6 +13,27 @@ def normalize_angle(theta):
     return torch.atan2(torch.sin(theta), torch.cos(theta))
 
 
+def rot2(theta):
+    """2x2 rotation matrices from angles: (...,) -> (...,2,2)."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)
+
+
+def se2_matrix(params):
+    """params (...,3) [x,y,theta] -> homogeneous (...,3,3)."""
+    x, y, th = params[..., 0], params[..., 1], params[..., 2]
+    c, s = torch.cos(th), torch.sin(th)
+    z, o = torch.zeros_like(x), torch.ones_like(x)
+    return torch.stack([torch.stack([c, -s, x], -1), torch.stack([s, c, y], -1),
+                        torch.stack([z, z, o], -1)], -2)
+
+
+def se2_params(matrix):
+    """Homogeneous (...,3,3) -> params (...,3) [x,y,theta]."""
+    th = torch.atan2(matrix[..., 1, 0], matrix[..., 0, 0])
+    return torch.stack([matrix[..., 0, 2], matrix[..., 1, 2], th], -1)
+
+
 def se2_compose(a, b):
     """a ∘ b (apply b first, then a). (...,3) x (...,3) -> (...,3)."""
     ca, sa = torch.cos(a[..., 2]), torch.sin(a[..., 2])
@@ -27,6 +48,11 @@ def se2_inverse(p):
     x = -(c * p[..., 0] + s * p[..., 1])
     y = -(-s * p[..., 0] + c * p[..., 1])
     return torch.stack([x, y, -p[..., 2]], -1)
+
+
+def se2_apply(p, pts):
+    """Apply SE2 params p (...,3) to points pts (...,N,2) -> (...,N,2)."""
+    return pts @ rot2(p[..., 2]).transpose(-1, -2) + p[..., None, :2]
 
 
 def se2_exp(xi):

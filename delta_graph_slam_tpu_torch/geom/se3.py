@@ -1,12 +1,16 @@
 """SE(3) transforms and quaternions on batched tensors.
 
 Counterparts of the JAX package's geom/se3.py: quaternion <-> rotation,
-homogeneous assembly and inverse, and the exponential and logarithm maps.
+homogeneous assembly, inverse and application, the exponential and
+logarithm maps, and the SE3 <-> SE2 bridge of the reference
+(transform3Dto2D / normalize_euler_angs, ros_utils.cpp:95-144).
 Quaternion layout is ``[w, x, y, z]`` throughout. Every function is written
 without in-place writes and without branches on tensor values, so it can
 be differentiated in forward mode (the tests hold the SE3 solver's
 closed-form Jacobians against such derivatives).
 """
+
+import math
 
 import torch
 
@@ -86,6 +90,11 @@ def se3_inverse(T):
     return se3_matrix(Rt, ti)
 
 
+def se3_apply(T, pts):
+    """Apply (...,4,4) to points (...,N,3) -> (...,N,3)."""
+    return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
+
+
 def _skew(w):
     z = torch.zeros_like(w[..., 0])
     return torch.stack(
@@ -159,3 +168,50 @@ def se3_log(T):
     Vinv = eye - 0.5 * K + ((1.0 - cot_term) / th2_safe)[..., None, None] * (K @ K)
     v = (Vinv @ T[..., :3, 3:4])[..., 0]
     return torch.cat([v, w], dim=-1)
+
+
+def euler_xyz_from_rot(R):
+    """Tait-Bryan angles (a,b,c) with R = Rx(a) @ Ry(b) @ Rz(c), the
+    representative with the first angle in [0, pi] (Eigen's
+    ``eulerAngles(0,1,2)`` range, which the reference's transform3Dto2D
+    relies on, ros_utils.cpp:125-131). (...,3,3) -> (...,3)."""
+    r00, r01, r02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    r12, r22 = R[..., 1, 2], R[..., 2, 2]
+    a = torch.atan2(-r12, r22)
+    cb = torch.hypot(r00, r01)
+    # with a < 0, the second representative (a+pi, pi-b, c+pi)
+    flip = a < 0
+    a = torch.where(flip, torch.atan2(r12, -r22), a)
+    b = torch.where(flip, torch.atan2(r02, -cb), torch.atan2(r02, cb))
+    c = torch.where(flip, torch.atan2(r01, -r00), torch.atan2(-r01, r00))
+    return torch.stack([a, b, c], -1)
+
+
+def normalize_euler_angs(euler):
+    """Min-norm Euler representative (ros_utils.cpp:95-113): subtract
+    pi * sign from every component and keep whichever vector has the smaller
+    norm. (...,3) -> (...,3)."""
+    shifted = euler - math.pi * torch.where(euler >= 0, 1.0, -1.0).to(euler.dtype)
+    keep = (torch.linalg.vector_norm(shifted, dim=-1, keepdim=True)
+            < torch.linalg.vector_norm(euler, dim=-1, keepdim=True))
+    return torch.where(keep, shifted, euler)
+
+
+def yaw_from_rot(R):
+    """Yaw through the reference's normalized-Euler trick (ros_utils.cpp:125-131)."""
+    return normalize_euler_angs(euler_xyz_from_rot(R))[..., 2]
+
+
+def transform_3d_to_2d(T):
+    """SE3 (...,4,4) -> SE2 params (...,3) [x,y,theta] (ros_utils.cpp:123-144)."""
+    return torch.stack([T[..., 0, 3], T[..., 1, 3], yaw_from_rot(T[..., :3, :3])], -1)
+
+
+def transform_2d_to_3d(p):
+    """SE2 params (...,3) -> SE3 (...,4,4) with z=0, roll=pitch=0
+    (ros_utils.cpp:105-121)."""
+    x, y, th = p[..., 0], p[..., 1], p[..., 2]
+    c, s = torch.cos(th), torch.sin(th)
+    z, o = torch.zeros_like(x), torch.ones_like(x)
+    return torch.stack([torch.stack([c, -s, z, x], -1), torch.stack([s, c, z, y], -1),
+                        torch.stack([z, z, o, z], -1), torch.stack([z, z, z, o], -1)], -2)

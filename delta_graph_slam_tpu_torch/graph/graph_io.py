@@ -266,7 +266,9 @@ def save_npz(builder: SE2GraphBuilder, path):
 
 
 def load_npz(path, device=DEFAULT_DEVICE) -> SE2GraphBuilder:
-    z = np.load(path)
+    # every table read once: an npz member is decompressed at each access
+    with np.load(path) as f:
+        z = dict(f)
     b = SE2GraphBuilder(device=device)
     nv = int(z["vmask"].sum())
     for v in range(nv):

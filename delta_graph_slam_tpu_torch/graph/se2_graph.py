@@ -124,9 +124,21 @@ class SE2GraphBuilder:
             self.fixed[vid] = bool(fixed)
             self._mark("v")
 
+    def set_all_fixed(self, fixed, only=None):
+        for v in range(len(self.fixed)) if only is None else only:
+            self.set_fixed(v, fixed)
+
     def set_pose(self, vid, pose):
         self.poses[vid] = np.asarray(pose, self.dtype)
         self._mark("v")
+
+    @property
+    def num_vertices(self):
+        return len(self.poses)
+
+    @property
+    def num_edges(self):
+        return len(self.edges)
 
     # ---- edges
     def _add_edge(self, etype, i, j, meas, info, level, kernel, delta):

@@ -1,10 +1,12 @@
-"""Synthetic city world and its point-soup scan sequence (numpy only).
+"""KITTI scans, and the synthetic city world with its point-soup scan
+sequence (numpy only).
 
-A copy of the JAX package's io/kitti.py (CityWorld, make_city_world,
-Frame, synthetic_city_sequence): a deterministic generated world (ground
-plane, building rectangles, a smooth vehicle trajectory) producing
-per-frame lidar-like scans, GPS fixes, ground-truth poses and matching
-OSM XML. The same seed gives the same arrays as the reference.
+A copy of the JAX package's io/kitti.py (load_kitti_velodyne_bin,
+CityWorld, make_city_world, Frame, synthetic_city_sequence): a
+deterministic generated world (ground plane, building rectangles, a smooth
+vehicle trajectory) producing per-frame lidar-like scans, GPS fixes,
+ground-truth poses and matching OSM XML. The same seed gives the same
+arrays as the reference.
 """
 
 import dataclasses
@@ -14,6 +16,12 @@ from typing import List
 import numpy as np
 
 EARTH_RADIUS_M = 6378137.0  # WGS84 equatorial radius (geom/projection.py)
+
+
+def load_kitti_velodyne_bin(path) -> np.ndarray:
+    """KITTI raw .bin scan -> (N,3) xyz (reflectance dropped)."""
+    arr = np.fromfile(path, dtype=np.float32).reshape(-1, 4)
+    return arr[:, :3]
 
 
 @dataclasses.dataclass

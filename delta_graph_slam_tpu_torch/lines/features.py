@@ -13,6 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..geom.se2 import rot2
 from ..ops.ransac import LineSegments
 
 _BIG = 1e9
@@ -192,11 +193,6 @@ def _angle_between(A, B):
     dot = A[..., 0] * B[..., 0] + A[..., 1] * B[..., 1]
     det = A[..., 0] * B[..., 1] - A[..., 1] * B[..., 0]
     return torch.atan2(det, dot)
-
-
-def rot2(theta):
-    c, s = torch.cos(theta), torch.sin(theta)
-    return torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)
 
 
 def _rotate(R, v):

@@ -28,7 +28,10 @@ optimizer holds, so the threaded runner's backend worker and optimizer
 thread overlap (pipeline/runner.py). Time spent waiting for a lock is
 recorded as ``lock_wait.<entry point>``.
 
-Not in this slice: save_state/load_state and create_marker_array.
+Checkpoints (``save_state`` / ``load_state``) use the reference's file
+format key for key (npz with object arrays of the valid points, the graph
+in the ``.graph.npz`` sidecar of graph/graph_io.py), so a state written by
+either package loads in the other.
 
 One divergence: the reference downloads OSM data from the public Overpass
 server when no building provider is given. This backend needs the provider
@@ -47,19 +50,22 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..buildings.manager import BuildingManager
+from ..buildings.building import Building
+from ..buildings.manager import BuildingManager, StaticProvider
 from ..geom.host import (
     quat_to_rot_np, se2_compose_np, se2_inverse_np, transform_2d_to_3d_np,
     transform_3d_to_2d_np, yaw_from_rot_np,
 )
 from ..geom.projection import gps_from_mercator, mercator_from_gps, mercator_scale
 from ..graph import SE2GraphBuilder, SolverConfig, optimize_se2
+from ..graph.graph_io import load_npz, save_g2o, save_npz
 from ..io.nmea import NmeaSentenceParser
 from ..io.pcd import save_pcd
 from ..lines.align import LineBasedScanmatcher, LineScanmatcherConfig
 from ..lines.features import make_lines, rot2, transform_lines
 from ..lines.overlap import are_buildings_overlapped
 from ..lines.scoring import FitnessScore
+from ..ops.cloud import make_cloud
 from ..ops.ransac import LineSegments
 from ..pipeline.information_matrix import InformationMatrixCalculator
 from ..pipeline.keyframe import KeyFrame, KeyFrameSnapshot
@@ -790,8 +796,6 @@ class DeltaBackend:
     def dump_graph(self, destination) -> bool:
         """DumpGraph service equivalent: the g2o text graph + .kernels
         sidecar and the array checkpoint."""
-        from ..graph.graph_io import save_g2o, save_npz
-
         os.makedirs(destination, exist_ok=True)
         save_g2o(self.graph, os.path.join(destination, "graph.g2o"))
         save_npz(self.graph, os.path.join(destination, "graph.npz"))
@@ -805,3 +809,149 @@ class DeltaBackend:
         kfs = [k for k in self.keyframes if k.gt_pose is not None]
         return ate_rpe_se2([k.estimate(poses) for k in kfs],
                            [k.gt_pose for k in kfs])
+
+    # ------------------------------------------------------- checkpointing
+    @_locked
+    def save_state(self, path):
+        """Full-session checkpoint: graph + keyframes + buildings + frames
+        of reference, array-native (npz), resumed with load_state. The
+        keyframe clouds are stored as their valid points only; the graph
+        goes to ``path + ".graph.npz"``. (The reference nodelet persists
+        only the g2o graph, graph_slam.cpp:354-361.)"""
+        kfs = self.keyframes
+        data = dict(
+            trans_odom2map=self.trans_odom2map,
+            origin=self.origin if self.origin is not None else np.zeros(0),
+            scale=np.float64(self.scale or 0.0),
+            accum_distance=np.float64(self.keyframe_updater.accum_distance),
+            prev_keypose=self.keyframe_updater.prev_keypose,
+            kf_is_first=np.bool_(self.keyframe_updater.is_first),
+            last_edge_accum=np.float64(self.loop_detector.last_edge_accum_distance),
+            adjust_initial=np.bool_(self.adjust_initial_orientation),
+            anchor_node=np.int64(-1 if self.anchor_node is None else self.anchor_node),
+            kf_stamps=np.asarray([k.stamp for k in kfs]),
+            kf_odom=np.asarray([k.odom for k in kfs]).reshape(-1, 4, 4),
+            kf_odom2d=np.asarray([k.odom2d for k in kfs]).reshape(-1, 3),
+            kf_accum=np.asarray([k.accum_distance for k in kfs]),
+            kf_node=np.asarray([-1 if k.node_id is None else k.node_id for k in kfs],
+                               np.int64),
+            kf_est_odom=np.asarray(
+                [k.estimated_odom if k.estimated_odom is not None
+                 else np.full(3, np.nan) for k in kfs]).reshape(-1, 3),
+            kf_gps=np.asarray(
+                [k.gps_coord if k.gps_coord is not None
+                 else np.full(2, np.nan) for k in kfs]).reshape(-1, 2),
+            kf_gt=np.asarray(
+                [k.gt_pose if k.gt_pose is not None
+                 else np.full(3, np.nan) for k in kfs]).reshape(-1, 3),
+            kf_clouds=np.asarray([_valid_points(k.cloud) for k in kfs], object),
+            kf_flat=np.asarray(
+                [_valid_points(k.flat_cloud) if k.flat_cloud is not None
+                 else np.zeros((0, 3)) for k in kfs], object),
+        )
+        if self.buildings_manager is not None:
+            bs = self.buildings_manager.buildings
+            data["b_ids"] = np.asarray([b.id for b in bs], object)
+            data["b_poses"] = np.asarray([b.pose for b in bs]).reshape(-1, 3)
+            data["b_corners"] = np.asarray([b.corners for b in bs], object)
+            data["b_nodes"] = np.asarray(
+                [-1 if b.node_id is None else b.node_id for b in bs], np.int64)
+        np.savez_compressed(path, **data)
+        save_npz(self.graph, str(path) + ".graph.npz")
+
+    def load_state(self, path, cloud_capacity=32768, flat_capacity=8192):
+        """Restore a save_state checkpoint (graph, keyframes, buildings) onto
+        this backend's device. As in the reference, a backend without a
+        building manager gets one with an empty provider: the restored
+        buildings keep their vertices, and no new building is downloaded."""
+        # every array read once: an npz member is decompressed at each access
+        with np.load(path, allow_pickle=True) as f:
+            z = dict(f)
+        self.graph = load_npz(str(path) + ".graph.npz", device=self.device)
+        self.trans_odom2map = z["trans_odom2map"]
+        self.origin = z["origin"] if z["origin"].size else None
+        self.scale = float(z["scale"]) or None
+        self.keyframe_updater.accum_distance = float(z["accum_distance"])
+        self.keyframe_updater.prev_keypose = z["prev_keypose"]
+        self.keyframe_updater.is_first = bool(z["kf_is_first"])
+        self.loop_detector.last_edge_accum_distance = float(z["last_edge_accum"])
+        self.adjust_initial_orientation = bool(z["adjust_initial"])
+        a = int(z["anchor_node"])
+        self.anchor_node = None if a < 0 else a
+
+        def unless_nan(v):
+            return None if np.isnan(v).any() else v
+
+        self.keyframes = []
+        for i in range(len(z["kf_stamps"])):
+            node = int(z["kf_node"][i])
+            self.keyframes.append(KeyFrame(
+                stamp=float(z["kf_stamps"][i]),
+                odom=z["kf_odom"][i],
+                odom2d=z["kf_odom2d"][i],
+                accum_distance=float(z["kf_accum"][i]),
+                cloud=make_cloud(z["kf_clouds"][i], capacity=cloud_capacity,
+                                 device=self.device),
+                flat_cloud=make_cloud(z["kf_flat"][i], capacity=flat_capacity,
+                                      device=self.device),
+                node_id=None if node < 0 else node,
+                estimated_odom=unless_nan(z["kf_est_odom"][i]),
+                gps_coord=unless_nan(z["kf_gps"][i]),
+                gt_pose=unless_nan(z["kf_gt"][i]),
+            ))
+        self.new_keyframes = []
+        self.keyframe_queue = []
+        self._bstack = None
+
+        if "b_ids" in z and self.scale:
+            if self.buildings_manager is None:
+                self.buildings_manager = BuildingManager(
+                    StaticProvider("<osm></osm>"), self.origin, self.scale,
+                    radius=self.cfg.nearby_buildings_radius,
+                    buffer_radius=self.cfg.buffer_buildings_radius,
+                    device=self.device,
+                )
+            mgr = self.buildings_manager
+            mgr.buildings = []
+            mgr.buildings_map = {}
+            for i in range(len(z["b_ids"])):
+                corners = np.asarray(z["b_corners"][i], float)
+                lines, cloud = mgr.outline(corners)
+                node = int(z["b_nodes"][i])
+                b = Building(id=str(z["b_ids"][i]), pose=z["b_poses"][i],
+                             corners=corners, lines=lines, cloud=cloud,
+                             node_id=None if node < 0 else node)
+                mgr.buildings.append(b)
+                mgr.buildings_map[b.id] = b
+
+    def create_marker_array(self):
+        """Viz data of the six marker namespaces (:934-1154) on the host:
+        keyframe and building estimates, graph edges with their level,
+        vertex positions, the loop radius, GPS and ground truth."""
+        poses = self.poses
+        kf_nodes = (np.asarray([k.estimate(poses)[:2] for k in self.keyframes])
+                    if self.keyframes else np.zeros((0, 2)))
+        b_nodes = (np.asarray([b.estimate(poses)[:2]
+                               for b in self.buildings_manager.buildings])
+                   if self.buildings_manager else np.zeros((0, 2)))
+        edges = [(int(e["i"]), int(e["j"]), int(e["level"]))
+                 for e in self.graph.edges if e["type"] == "se2" and e["j"] is not None]
+        gps = (np.asarray([k.gps_coord for k in self.keyframes if k.gps_coord is not None])
+               if self.keyframes else np.zeros((0, 2)))
+        gt = (np.asarray([k.gt_pose[:2] for k in self.keyframes if k.gt_pose is not None])
+              if self.keyframes else np.zeros((0, 2)))
+        return {
+            "keyframe_nodes": kf_nodes,
+            "building_nodes": b_nodes,
+            "edges": edges,
+            "node_xy": (np.asarray([p[:2] for p in self.graph.poses])
+                        if self.graph.poses else np.zeros((0, 2))),
+            "loop_close_radius": self.loop_detector.distance_thresh,
+            "gps": gps,
+            "gt_pose": gt,
+        }
+
+
+def _valid_points(cloud):
+    """The valid points of a cloud as a host (n,3) float32 array."""
+    return cloud.points[cloud.mask].cpu().numpy()

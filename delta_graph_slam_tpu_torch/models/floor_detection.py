@@ -47,10 +47,10 @@ class FloorDetectionConfig:
     # O(scan capacity). Overflow drops the (stable-order) tail; 0 disables
     # the truncation.
     clip_capacity: int = 8192
-    # neighbour source for the normal filter: 'brute' (exact tiled kNN) or
-    # 'voxel' (hash-bounded candidates); 'auto' is 'brute', the reference's
-    # choice off the TPU. Its TPU choice 'dense' (ops/moments.py) is not
-    # ported and raises.
+    # neighbour source for the normal filter: 'brute' (exact tiled kNN),
+    # 'voxel' (hash-bounded candidates) or 'dense' (radius statistics through
+    # the masked-moments products, ops/moments.py); 'auto' is 'brute', the
+    # reference's choice off the TPU (its TPU choice is 'dense').
     neighbor_method: str = "auto"         # auto | brute | voxel | dense
     normal_radius: float = 0.75           # 'dense' path only
 
@@ -77,7 +77,7 @@ def detect_floor(cfg: FloorDetectionConfig, cloud: MaskedCloud, uniforms):
         method = "brute" if cfg.neighbor_method == "auto" else cfg.neighbor_method
         n, valid = estimate_normals(
             c, k=10, viewpoint=(0.0, 0.0, cfg.sensor_height), chunk=cfg.chunk,
-            method=method)
+            method=method, radius=cfg.normal_radius)
         keep = torch.abs(n[:, 2]) > math.cos(math.radians(cfg.normal_filter_thresh))
         c = MaskedCloud(c.points, c.mask & valid & keep)
     c = compact(c)
@@ -107,9 +107,8 @@ class FloorDetectionStage:
 
     def __init__(self, cfg: FloorDetectionConfig = FloorDetectionConfig(),
                  device=DEFAULT_DEVICE, sampler=None):
-        if cfg.neighbor_method not in ("auto", "brute", "voxel"):
-            raise NotImplementedError(
-                f"neighbor_method {cfg.neighbor_method!r} is not ported")
+        if cfg.neighbor_method not in ("auto", "brute", "voxel", "dense"):
+            raise ValueError(f"unknown neighbor_method {cfg.neighbor_method!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         if sampler is None:

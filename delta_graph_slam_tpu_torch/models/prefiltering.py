@@ -45,15 +45,17 @@ class PrefilteringConfig:
     deskewing: bool = False
     normal_filter_thresh: float = 0.2         # fixed in reference (:181, :238)
     normal_k: int = 10
-    normal_radius: float = 0.75               # 'dense' path only (not ported)
+    normal_radius: float = 0.75               # dense path: radius-search normals
     # capacities (static shapes)
     raw_capacity: int = 131072
     out_capacity: int = 32768
     chunk: int = 2048
-    # neighbour search for the radius filter and normals: 'voxel'
-    # (hash-bounded kNN candidates) or 'brute' (exact tiled kNN). 'auto'
-    # resolves to 'voxel', the reference's choice off the TPU
-    # (prefiltering.py:83-87); its TPU choice 'dense' is not ported yet.
+    # neighbour search for the radius filter and normals: 'dense' (exact
+    # radius statistics through the masked-moments products,
+    # ops/moments.py), 'voxel' (hash-bounded kNN candidates) or 'brute'
+    # (exact tiled kNN). 'auto' resolves to 'voxel', the reference's choice
+    # off the TPU (prefiltering.py:83-87); its choice on a TPU, 'dense', is
+    # a TPU layout decision, left to a measurement on the card.
     neighbor_method: str = "auto"
 
 
@@ -62,12 +64,22 @@ class PrefilterOutput(NamedTuple):
     filtered2d: MaskedCloud
 
 
+def colored_by_order(points: np.ndarray) -> np.ndarray:
+    """Debug colours encoding acquisition order (the reference's
+    /colored_points deskew aid, prefiltering_nodelet.cpp:300-318):
+    r = 255*t, g = 128, b = 255*(1-t). Returns (N,3) uint8."""
+    n = max(len(points), 1)
+    t = np.arange(len(points), dtype=np.float64) / n
+    return np.stack(
+        [255 * t, np.full(len(points), 128.0), 255 * (1 - t)], axis=1
+    ).astype(np.uint8)
+
+
 def _resolve_neighbor_method(cfg: PrefilteringConfig) -> PrefilteringConfig:
     if cfg.neighbor_method == "auto":
         cfg = dataclasses.replace(cfg, neighbor_method="voxel")
-    if cfg.neighbor_method not in ("voxel", "brute"):
-        raise NotImplementedError(
-            f"neighbor_method {cfg.neighbor_method!r} is not ported")
+    if cfg.neighbor_method not in ("voxel", "brute", "dense"):
+        raise ValueError(f"unknown neighbor_method {cfg.neighbor_method!r}")
     return cfg
 
 
@@ -109,7 +121,7 @@ def run(cfg: PrefilteringConfig, cloud: MaskedCloud, base_T,
     c2 = normal_filter(
         c2, cfg.normal_filter_thresh, cfg.normal_k,
         viewpoint=(0.0, 0.0, 0.0), keep_vertical_surfaces=True,
-        chunk=cfg.chunk, method=cfg.neighbor_method,
+        chunk=cfg.chunk, method=cfg.neighbor_method, radius=cfg.normal_radius,
     )
     c2 = compact(flatten_z(c2))
     return PrefilterOutput(c3, c2)

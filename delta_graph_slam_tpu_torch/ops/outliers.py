@@ -13,6 +13,7 @@ import torch
 
 from .cloud import MaskedCloud
 from .knn import knn, radius_count
+from .moments import radius_moments
 from .normals import OFFSETS_27
 from .voxel import build_voxel_hash
 from .voxel_knn import voxel_radius_count
@@ -43,11 +44,16 @@ def radius_outlier_removal(
     cloud: MaskedCloud, radius: float = 0.8, min_neighbors: int = 2, *,
     chunk=2048, method="brute", voxel_window=16,
 ) -> MaskedCloud:
-    """method='voxel' counts neighbours among windowed hash candidates (cell
-    size = radius, 27-neighbourhood): exact unless a cell holds more than
-    ``voxel_window`` points, where it may undercount. 'brute' counts
-    exactly. The reference's 'dense' path (ops/moments.py) is not ported
-    yet."""
+    """method='dense' computes exact PCL RadiusSearch counts through the
+    masked-moments products (ops/moments.py): no gathers, no cell-capacity
+    truncation. method='voxel' counts neighbours among windowed hash
+    candidates (cell size = radius, 27-neighbourhood): exact unless a cell
+    holds more than ``voxel_window`` points, where it may undercount.
+    'brute' counts exactly."""
+    if method == "dense":
+        mom = radius_moments(cloud, cloud, radius, chunk=min(4096, cloud.capacity))
+        keep = cloud.mask & ((mom.count - 1) >= min_neighbors)
+        return MaskedCloud(cloud.points, keep)
     if method == "voxel":
         vh = build_voxel_hash(cloud, radius, cloud.capacity,
                               dense_index=True, with_stats=False)
@@ -56,6 +62,6 @@ def radius_outlier_removal(
     elif method == "brute":
         cnt = radius_count(cloud.points, cloud.mask, radius, chunk=chunk)
     else:
-        raise NotImplementedError(f"neighbour method {method!r} is not ported")
+        raise ValueError(f"unknown neighbour method {method!r}")
     keep = cloud.mask & (cnt >= min_neighbors)
     return MaskedCloud(cloud.points, keep)

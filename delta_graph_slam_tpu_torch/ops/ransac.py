@@ -6,7 +6,9 @@ floor_detection_nodelet.cpp:138-141, and line segmentation,
 line_based_scanmatcher.cpp:345-358), a fixed batch of hypotheses is drawn,
 scored all at once, and the best one taken (first index among equal vote
 counts). The inliers of each line are pruned to their largest cluster by
-1-D gap clustering on the line coordinate (DIVERGENCES.md §14).
+1-D gap clustering on the line coordinate (DIVERGENCES.md §14);
+``euclidean_cluster_mask`` is the general euclidean clustering, which no
+ported path calls.
 
 The samples come in as an argument: ``ransac_plane`` takes
 ``(n_hypotheses, 3)`` uniforms in [0, 1) and ``ransac_line``
@@ -15,11 +17,14 @@ or the JAX package's threefry draws replayed in a test) drives them. Everything 
 the ``max_lines`` iterations are masked and read nothing back to the host.
 """
 
+import math
 from typing import NamedTuple
 
 import torch
 
+from ..utils.device import strict_fp32_matmul
 from .cloud import MaskedCloud
+from .knn import _dist2
 
 
 class LineSegments(NamedTuple):
@@ -129,6 +134,45 @@ def ransac_line_single(pts, mask, u, dist_thresh):
     a, dirn = p0[best], d[best]
     inl = mask & (_point_line_dist2_2d(pts, a, dirn) < dist_thresh * dist_thresh)
     return a, dirn, inl
+
+
+
+def euclidean_cluster_mask(points, mask, tolerance, *, rounds=None, chunk=1024):
+    """Label connected components (distance <= tolerance) and return the mask
+    of the LARGEST cluster plus per-point labels (int32; n for invalid
+    points). Replaces pcl::EuclideanClusterExtraction.
+
+    Min-label propagation with pointer jumping: converges in O(log N) rounds
+    for any cluster shape (including 2 cm-spaced point chains). Each round
+    takes every point's smallest neighbour label over target chunks, then
+    jumps twice (label <- min(label, label[label])). The cluster sizes are an
+    integer sum; among equal sizes the first label wins, as in the reference.
+    """
+    n = points.shape[0]
+    if rounds is None:
+        rounds = max(1, math.ceil(math.log2(max(n, 2))) + 2)
+    tol2 = tolerance * tolerance
+    labels = torch.where(mask, torch.arange(n, device=points.device), n)
+
+    def neighbour_min(labels):
+        lab = labels
+        for c0 in range(0, n, chunk):
+            d2 = _dist2(points, points[c0:c0 + chunk])
+            valid = mask[None, c0:c0 + chunk] & (d2 <= tol2)
+            cand = torch.where(valid, labels[None, c0:c0 + chunk], n)
+            lab = torch.minimum(lab, cand.amin(1))
+        return torch.where(mask, lab, n)
+
+    with strict_fp32_matmul():
+        for _ in range(rounds):
+            labels = neighbour_min(labels)
+            for _ in range(2):
+                safe = torch.clamp(labels, 0, n - 1)
+                labels = torch.where(mask, torch.minimum(labels, labels[safe]), n)
+    counts = torch.zeros(n + 1, dtype=torch.int64, device=points.device)
+    counts.index_add_(0, torch.clamp(labels, 0, n), mask.to(torch.int64))
+    winner = torch.argmax(counts[:-1])
+    return (labels == winner) & mask, labels.to(torch.int32)
 
 
 def line_gap_cluster_mask(t_proj, mask, tolerance):

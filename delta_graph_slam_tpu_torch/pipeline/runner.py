@@ -37,6 +37,7 @@ everything fed back from them (trans_odom2map, the delta backend's
 estimated_odom and building alignments), vary from run to run.
 """
 
+import os
 import threading
 from typing import Optional
 
@@ -321,6 +322,21 @@ class Pipeline:
 
     def save_map(self, destination, resolution=0.05):
         return self.backend.save_map(destination, resolution)
+
+    def save_state(self, path):
+        """Checkpoint the whole pipeline: the backend to ``path`` (and its
+        graph sidecar), the odometry stage to ``path + ".odom.npz"``."""
+        self.backend.save_state(path)
+        self.odometry.save_state(str(path) + ".odom.npz")
+
+    def load_state(self, path, **kw):
+        """Resume from save_state; ``kw`` (cloud_capacity, flat_capacity)
+        goes to the backend's load_state."""
+        self.backend.load_state(path, **kw)
+        odom_path = str(path) + ".odom.npz"
+        if os.path.exists(odom_path):
+            self.odometry.load_state(
+                odom_path, capacity=self.cfg.prefiltering.out_capacity)
 
     def evaluate(self):
         return self.backend.compute_ate_rpe()

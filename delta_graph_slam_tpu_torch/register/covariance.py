@@ -1,6 +1,7 @@
 """Batched 3x3 symmetric eigendecomposition and GICP covariance models.
 
-fast_gicp computes per-point covariances from the k nearest neighbours and
+fast_gicp computes per-point covariances from the k nearest neighbours (or,
+with the 'dense' method, the exact radius neighbourhood) and
 regularizes them to "plane" form (eigenvalues -> [1e-3, 1, 1]); PCL NDT
 floors small voxel-covariance eigenvalues relative to the largest. Both
 are closed-form here, vectorized across every point or voxel.
@@ -8,7 +9,9 @@ are closed-form here, vectorized across every point or voxel.
 
 import torch
 
+from ..ops.cloud import MaskedCloud
 from ..ops.knn import knn
+from ..ops.moments import radius_moments
 from ..ops.normals import eigenvalues3x3, kernel_column
 from ..ops.voxel_knn import neighbourhood_cov
 
@@ -73,3 +76,15 @@ def knn_covariances(points, mask, k=20, *, mode="plane", chunk=1024):
     cov = regularize_covariances(
         neighbourhood_cov(points[idx.to(torch.int64)], nb_valid), mode=mode)
     return cov, mask & (nb_valid.sum(1) >= 3)
+
+
+def dense_covariances(points, mask, radius=1.0, *, mode="plane", chunk=4096):
+    """Per-point covariances from the exact radius neighbourhood, through
+    the masked-moments products (ops/moments.py), regularized. The
+    neighbourhood (radius instead of fast_gicp's kNN) is DIVERGENCES.md
+    #12: after 'plane' regularization only the local surface orientation
+    survives, which agrees wherever the two neighbourhoods see the same
+    surface. Returns (covs (N,3,3), valid (N,))."""
+    cloud = MaskedCloud(points, mask)
+    mom = radius_moments(cloud, cloud, radius, chunk=min(chunk, points.shape[0]))
+    return regularize_covariances(mom.cov, mode=mode), mask & (mom.count >= 3)

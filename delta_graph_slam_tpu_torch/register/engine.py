@@ -34,7 +34,7 @@ from ..ops.knn import nn_1
 from ..ops.voxel import VoxelHash, build_voxel_hash, voxel_lookup
 from ..ops.voxel_knn import voxel_knn_covariances, voxel_nn
 from .config import RegistrationConfig
-from .covariance import knn_covariances, regularize_covariances
+from .covariance import dense_covariances, knn_covariances, regularize_covariances
 
 # The JAX package forces Precision.HIGHEST on these products; the
 # counterpart on the card is full float32, never TF32.
@@ -298,19 +298,37 @@ def _voxel_target_model(cfg: RegistrationConfig, capacity_voxels: int,
     return TargetModel(cloud.points, cloud.mask, None, vh, covs, inv)
 
 
+def _dense_covs(cfg: RegistrationConfig, points, mask):
+    covs, _ = dense_covariances(points, mask, radius=cfg.cov_dense_radius,
+                                mode="plane")
+    return covs
+
+
 def _build_target_model(cfg: RegistrationConfig, capacity_voxels: int,
                         cloud: MaskedCloud) -> TargetModel:
+    """As the reference (engine.py:285-329): with cov_method='dense' the
+    gicp target's radius covariances are taken in the NN hash's order
+    (nn_method='voxel'); a brute-force target keeps kNN covariances."""
     if cfg.head in ("vgicp", "ndt"):
         return _voxel_target_model(cfg, capacity_voxels, cloud)
     points, mask, vh = _model_cloud(cfg, capacity_voxels, cloud)
-    covs = _gicp_covs(cfg, vh, cloud) if cfg.head == "gicp" else None
+    covs = None
+    if cfg.head == "gicp":
+        covs = (_dense_covs(cfg, points, mask)
+                if vh is not None and cfg.cov_method == "dense"
+                else _gicp_covs(cfg, vh, cloud))
     return TargetModel(points, mask, covs, vh)
 
 
 def _build_source_model(cfg: RegistrationConfig, capacity_voxels: int,
                         cloud: MaskedCloud) -> SourceModel:
+    """With cov_method='dense' the source keeps its own order (no hash is
+    needed for radius covariances), as in the reference (engine.py:338)."""
     if cfg.head not in ("gicp", "vgicp"):
         return SourceModel(cloud.points, cloud.mask, None)
+    if cfg.cov_method == "dense":
+        return SourceModel(cloud.points, cloud.mask,
+                           _dense_covs(cfg, cloud.points, cloud.mask))
     points, mask, vh = _model_cloud(cfg, capacity_voxels, cloud)
     return SourceModel(points, mask, _gicp_covs(cfg, vh, cloud))
 
@@ -323,9 +341,8 @@ class Registration:
     def __init__(self, cfg: RegistrationConfig, capacity_voxels: int = 8192):
         if cfg.cov_method == "auto":
             cfg = dataclasses.replace(cfg, cov_method="knn")
-        if cfg.head in ("gicp", "vgicp") and cfg.cov_method != "knn":
-            raise NotImplementedError(
-                f"cov_method {cfg.cov_method!r} is not ported (only 'knn')")
+        if cfg.cov_method not in ("knn", "dense"):
+            raise ValueError(f"unknown cov_method {cfg.cov_method!r}")
         if cfg.nn_method not in ("voxel", "brute"):
             raise ValueError(f"unknown nn_method {cfg.nn_method!r}")
         self.cfg = cfg

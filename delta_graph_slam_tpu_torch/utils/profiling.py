@@ -1,9 +1,32 @@
-"""Per-stage wall-clock timers."""
+"""Per-stage wall-clock timers, and a device trace scope."""
 
 import collections
 import contextlib
+import os
 import threading
 import time
+
+import torch
+import torch.profiler as tp
+
+
+@contextlib.contextmanager
+def device_trace(label="dgs"):
+    """torch.profiler trace scope, enabled by DGS_TRACE=<output dir>: the
+    CPU and (on a card) CUDA activity of the enclosed work goes to
+    ``<dir>/<label>.json``, a Chrome trace (the deep-profiling layer under
+    the wall-clock StageTimer). Without DGS_TRACE it does nothing."""
+    out = os.environ.get("DGS_TRACE")
+    if not out:
+        yield
+        return
+    activities = [tp.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(tp.ProfilerActivity.CUDA)
+    os.makedirs(out, exist_ok=True)
+    with tp.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(out, f"{label}.json"))
 
 
 class StageTimer:

@@ -85,6 +85,47 @@ def test_se2_ops_match_reference():
                                    atol=1e-12)
 
 
+def test_se2_matrix_ops_match_reference():
+    """rot2, se2_matrix, se2_params and se2_apply as tensor functions."""
+    rng = np.random.default_rng(4)
+    p = rng.normal(size=(32, 3)) * [5.0, 5.0, 4.0]
+    pts = rng.normal(size=(32, 9, 2)) * 10.0
+    tp, jp = torch.from_numpy(p), jnp.asarray(p)
+    M = p_se2.se2_matrix(tp)
+    pairs = [
+        (p_se2.rot2(tp[:, 2]), r_se2.rot2(jp[:, 2])),
+        (M, r_se2.se2_matrix(jp)),
+        (p_se2.se2_params(M), r_se2.se2_params(jnp.asarray(M.numpy()))),
+        (p_se2.se2_apply(tp, torch.from_numpy(pts)), r_se2.se2_apply(jp, jnp.asarray(pts))),
+    ]
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-12)
+    # params -> matrix -> params is the identity up to the angle's wrap
+    np.testing.assert_allclose(p_se2.se2_params(M).numpy()[:, :2], p[:, :2], atol=1e-12)
+
+
+def test_builder_counts_and_set_all_fixed_match_reference():
+    """num_vertices, num_edges and set_all_fixed (se2_graph.py:128-142)."""
+    builders = (SE2GraphBuilder(device="cpu"), RBuilder())
+    for b in builders:
+        for k in range(5):
+            b.add_vertex([float(k), 0.0, 0.0], fixed=(k == 0))
+        for k in range(4):
+            b.add_se2_edge(k, k + 1, [1.0, 0.0, 0.0], INFO)
+        b.add_prior_xy(2, [2.0, 0.1], np.eye(2))
+        b.set_all_fixed(True, only=[1, 3])
+    assert [b.fixed for b in builders] == [[True, True, False, True, False]] * 2
+    assert [(b.num_vertices, b.num_edges) for b in builders] == [(5, 5)] * 2
+    for b in builders:
+        b.set_all_fixed(False)
+    assert builders[0].fixed == builders[1].fixed == [False] * 5
+    # a flag change repacks the vertex table
+    g = builders[0].to_arrays(v_capacity=8, e_capacity=8)
+    builders[0].set_all_fixed(True)
+    assert builders[0].to_arrays(v_capacity=8, e_capacity=8).fixed[:5].all()
+    assert not g.fixed[:5].any()
+
+
 @pytest.mark.parametrize("name", ROBUST_KERNELS)
 def test_robust_kernel_matches_reference(name):
     k = ROBUST_KERNELS.index(name)

@@ -174,9 +174,16 @@ def test_floor_detection_default_sampler_repeats_and_dense_raises():
     scan = city_scan(n=3000, seed=4)
     a = [FloorDetectionStage(cfg, device="cpu").detect(scan) for _ in range(2)]
     np.testing.assert_array_equal(a[0], a[1])
-    with pytest.raises(NotImplementedError, match="dense"):
-        FloorDetectionStage(dataclasses.replace(cfg, neighbor_method="dense"),
+    # 'dense' neighbours are ported (tests/test_torch_moments.py holds them to
+    # the reference); an unknown method raises
+    with pytest.raises(ValueError, match="nope"):
+        FloorDetectionStage(dataclasses.replace(cfg, neighbor_method="nope"),
                             device="cpu")
+    # at this scan's density (1500 ground points over 80 x 80 m) no point has
+    # the 3 neighbours within 0.75 m that a radius normal needs
+    dense = FloorDetectionStage(dataclasses.replace(cfg, neighbor_method="dense"),
+                                device="cpu").detect(scan)
+    assert dense is None
 
 
 def test_strict_fp32_matmul_restores_the_setting():
@@ -230,14 +237,18 @@ def test_hdl_preset_matches_reference(name):
 
 
 def test_unknown_preset_and_unported_paths_raise():
-    """An unknown preset and 'dense' neighbours still raise; the nodelet's
-    NDT default and the deskewing prefilter construct."""
+    """An unknown preset and an unknown neighbour method raise; 'dense'
+    neighbours, the nodelet's NDT default and the deskewing prefilter
+    construct."""
     with pytest.raises(KeyError, match="hdl_999"):
         p_get_preset("hdl_999")
     cfg = p_get_preset("hdl_400")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="nope"):
         PPipeline(dataclasses.replace(cfg, floor=dataclasses.replace(
-            cfg.floor, neighbor_method="dense")), device="cpu")
+            cfg.floor, neighbor_method="nope")), device="cpu")
+    dense = PPipeline(dataclasses.replace(cfg, floor=dataclasses.replace(
+        cfg.floor, neighbor_method="dense")), device="cpu")
+    assert dense.floor.cfg.neighbor_method == "dense"
     be = HdlBackend(HdlBackendConfig(), device="cpu")
     assert be.registration.cfg.head == "ndt" and be.registration.cfg.neighbor_offsets == 7
     pipe = PPipeline(dataclasses.replace(cfg, prefiltering=dataclasses.replace(

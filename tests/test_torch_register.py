@@ -158,18 +158,33 @@ def test_odometry_state_round_trip(filtered, tmp_path):
     np.testing.assert_allclose(fb.pose, fa.pose, atol=1e-6)
 
 
+def test_colored_by_order_matches_reference():
+    from delta_graph_slam_tpu.models.prefiltering import colored_by_order as r_colored
+    from delta_graph_slam_tpu_torch.models.prefiltering import colored_by_order
+
+    for n in (0, 1, 7, 1000):
+        pts = np.zeros((n, 3), np.float32)
+        got = colored_by_order(pts)
+        assert got.dtype == np.uint8 and got.shape == (n, 3)
+        np.testing.assert_array_equal(got, r_colored(pts))
+
+
 def test_unported_methods_raise(filtered):
-    """What is still unported raises: 'dense' covariances (ops/moments.py),
-    'dense' neighbours and an unknown preset. The vgicp / ndt heads, the
-    nodelet-default NDT registration and the deskewing prefilter now run."""
+    """Unknown covariance and neighbour methods and an unknown preset raise.
+    The 'dense' methods (ops/moments.py; tests/test_torch_moments.py holds
+    them to the reference), the vgicp / ndt heads, the nodelet-default NDT
+    registration and the deskewing prefilter run."""
     _, reg = _small(p_get_preset)
-    for cfg in (dataclasses.replace(reg, cov_method="dense"),
-                dataclasses.replace(reg, method="FAST_VGICP", cov_method="dense")):
-        with pytest.raises(NotImplementedError):
+    for cfg in (dataclasses.replace(reg, cov_method="nope"),
+                dataclasses.replace(reg, method="FAST_VGICP", cov_method="nope")):
+        with pytest.raises(ValueError, match="nope"):
             PReg(cfg)
+        assert PReg(dataclasses.replace(cfg, cov_method="dense")).cfg.cov_method == "dense"
     pre, _ = _small(p_get_preset)
-    with pytest.raises(NotImplementedError):
-        PStage(dataclasses.replace(pre, neighbor_method="dense"), device="cpu")
+    with pytest.raises(ValueError, match="nope"):
+        PStage(dataclasses.replace(pre, neighbor_method="nope"), device="cpu")
+    assert PStage(dataclasses.replace(pre, neighbor_method="dense"),
+                  device="cpu").cfg.neighbor_method == "dense"
     with pytest.raises(KeyError):
         p_get_preset("hdl_999")
     assert p_get_preset("hdl_400").hdl is not None

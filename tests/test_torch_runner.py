@@ -32,7 +32,7 @@ from delta_graph_slam_tpu_torch.ops.segment import deterministic
 from delta_graph_slam_tpu_torch.pipeline import flow as p_flow
 from delta_graph_slam_tpu_torch.pipeline.runner import Pipeline
 from delta_graph_slam_tpu_torch.utils.device import strict_fp32_matmul
-from delta_graph_slam_tpu_torch.utils.profiling import StageTimer
+from delta_graph_slam_tpu_torch.utils.profiling import StageTimer, device_trace
 
 from test_torch_register import _small as small_stages  # noqa: E402
 
@@ -371,3 +371,21 @@ def test_shared_switch_and_timer_stress():
     assert not errors
     assert timer.summary()["stage"]["count"] == 16 * 200
     assert not torch.are_deterministic_algorithms_enabled()
+
+
+def test_device_trace_follows_dgs_trace(tmp_path, monkeypatch):
+    """utils/profiling.py:device_trace, as the reference's: a no-op without
+    DGS_TRACE; with it, the enclosed work's trace lands in the directory
+    (a torch.profiler Chrome trace here, a jax.profiler one there)."""
+    from delta_graph_slam_tpu.utils.profiling import device_trace as r_device_trace
+
+    monkeypatch.delenv("DGS_TRACE", raising=False)
+    for scope in (device_trace, r_device_trace):
+        with scope("off"):
+            torch.ones(8).sum()
+    assert not list(tmp_path.iterdir())
+    monkeypatch.setenv("DGS_TRACE", str(tmp_path / "tr"))
+    with device_trace("run"):
+        torch.arange(64.0).reshape(8, 8).matmul(torch.ones(8, 8))
+    trace = (tmp_path / "tr" / "run.json").read_text()
+    assert "aten::matmul" in trace or "aten::mm" in trace

@@ -127,6 +127,46 @@ def test_se3_maps_match_reference(dtype):
                                    atol=ATOL[dtype], err_msg=f"pair {k}")
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_se3_bridge_matches_reference(dtype):
+    """se3_apply and the SE3 <-> SE2 bridge (euler_xyz_from_rot on both of
+    Eigen's representatives, normalize_euler_angs, yaw_from_rot,
+    transform_3d_to_2d / transform_2d_to_3d) as tensor functions."""
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(40, 4))
+    q[:20, 1:3] *= 0.05                          # near-planar rotations
+    R = np.concatenate([pivot_rotations(),
+                        np.asarray(r_se3.quat_to_rot(jnp.asarray(q)))]).astype(dtype)
+    Tm = np.asarray(r_se3.se3_matrix(jnp.asarray(R), jnp.asarray(
+        rng.normal(size=(len(R), 3)) * 10.0))).astype(dtype)
+    pts = rng.normal(size=(len(R), 7, 3)).astype(dtype) * 5
+    euler = np.asarray(r_se3.euler_xyz_from_rot(jnp.asarray(R)))
+    assert (euler[:, 0] >= 0).all() and (-np.asarray(R)[:, 1, 2] < 0).any()  # both branches
+    p2 = (rng.normal(size=(len(R), 3)) * [20.0, 20.0, 3.0]).astype(dtype)
+    pairs = [
+        (p_se3.se3_apply(T(Tm), T(pts)), r_se3.se3_apply(jnp.asarray(Tm), jnp.asarray(pts))),
+        (p_se3.euler_xyz_from_rot(T(R)), euler),
+        (p_se3.normalize_euler_angs(T(euler.astype(dtype))),
+         r_se3.normalize_euler_angs(jnp.asarray(euler.astype(dtype)))),
+        (p_se3.yaw_from_rot(T(R)), r_se3.yaw_from_rot(jnp.asarray(R))),
+        (p_se3.transform_3d_to_2d(T(Tm)), r_se3.transform_3d_to_2d(jnp.asarray(Tm))),
+        (p_se3.transform_2d_to_3d(T(p2)), r_se3.transform_2d_to_3d(jnp.asarray(p2))),
+    ]
+    for k, (got, want) in enumerate(pairs):
+        assert got.numpy().dtype == dtype
+        # a 5e-5 rad float32 bound for angles of near-gimbal rotations, where
+        # atan2 of a tiny pair turns with the last bit; roundoff in float64
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol={np.float32: 5e-5, np.float64: 1e-12}[dtype],
+                                   err_msg=f"pair {k}")
+    # the host twins the backends use agree with the tensor functions
+    from delta_graph_slam_tpu_torch.geom.host import transform_3d_to_2d_np
+
+    Tm64 = Tm.astype(np.float64)
+    np.testing.assert_allclose(np.stack([transform_3d_to_2d_np(x) for x in Tm64]),
+                               p_se3.transform_3d_to_2d(T(Tm64)).numpy(), atol=1e-12)
+
+
 def test_rot_to_quat_pivots_and_sign():
     """Every pivot is exercised, w >= 0 always, and the quaternion maps back
     to its rotation to 1e-12 (float64)."""
