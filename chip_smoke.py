@@ -100,6 +100,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      neighbor_method='dense' and cov_method='dense' twice (>= 90 %
      converged, drift <= 5 % of the path, odometry bitwise equal), frames/s
      and ms/frame beside phase 4's voxel drive.
+ 14. parallel/: the SE2 graph solve in three layouts (whole chain, the
+     SPIKE core solve with 16 segments, and optimize_se2's automatic route,
+     the locality-aware SPIKE solve) on phase 6's 4096-node graph (cold
+     start, 30 iterations) and on bench_multichip.py:123's 16384-node
+     two-lap graph (warm start, 8 iterations): each twice (bitwise equal
+     within a layout), one step of each against a float64 host solve
+     (SuperLU) to 1e-9 relative with nothing dropped, final chi2 across
+     layouts to DIVERGENCES.md section 13's contract (1e-3 relative cold,
+     1e-2 warm, as bench_multichip.py holds it), ms and CUDA kernels per
+     LM iteration; then MultiBagOdometry over phase 4's frames at full
+     capacity, B = 1 and B = 8 bags (bag b replays the frames from frame b,
+     bench_multichip.py:205), FAST_GICP with voxel correspondences (32
+     lockstep frames), then brute ones through the batched nn1 launch (8
+     frames: a brute model's kNN covariances search the whole cloud in
+     plain PyTorch): every bag of the B = 8 run
+     held to its own B = 1 drive (1e-3 m, 1e-4 rotation), aggregate
+     scans/s and CUDA kernels per GN iteration at both B; the batched nn1
+     kernel at the brute drive's shape against its plain version and
+     against B single launches (bitwise), timed both ways.
 Phase 5 also runs a deskewed variant (deskewing on, a constant angular
 velocity fed through on_imu), card against CPU.
 The line before the last is the kernel report, the last line the result.
@@ -107,6 +126,7 @@ With --out, a JSON file with every measurement goes into DIR.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -130,6 +150,12 @@ CITY_FRAMES = 240
 SE3_LM_ITERS = 128        # bench.py:1028
 IMU_FRAMES = 60
 DESKEW_RATE = [0.0, 0.0, 0.5]   # rad/s about z: a car in a gentle turn
+SPIKE_WARM_NODES = 16384        # bench_multichip.py:123
+SPIKE_WARM_ITERS = 8            # bench_multichip.py:123 (lm_iters)
+MB_BAGS = 8                     # bench_multichip.py:224
+MB_STEPS = 32                   # lockstep frames a bag (phase 4 has 40)
+MB_BRUTE_STEPS = 8              # brute: every model's kNN covariances search
+                                # the whole cloud in plain PyTorch
 
 
 def fail(msg):
@@ -2253,6 +2279,408 @@ def run_host_runtime(report, slice_frames, world, city, city_gts, device="cuda")
     return launches
 
 
+# ------------------------------------------------------ phase 14: parallel/
+
+def host_step(builder, lam):
+    """The first LM step of the builder's se2 graph in float64 on the host:
+    (H + lam I) dx = -J^T W r over every vertex but the fixed vertex 0,
+    robust weights as host_lm's, scipy SuperLU. Returns dx (V,3)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+
+    es = [e for e in builder.edges if e["type"] == "se2"]
+    ei = np.asarray([e["i"] for e in es])
+    ej = np.asarray([e["j"] for e in es])
+    meas = np.asarray([e["meas"] for e in es], np.float64)
+    infos = np.asarray([e["info"] for e in es], np.float64)
+    huber = np.asarray([e["kernel"] == 1 for e in es])
+    delta = np.asarray([e["delta"] for e in es], np.float64)
+    x = np.asarray(builder.poses, np.float64)
+    V = len(x)
+    r, Ji, Jj = _host_linearize(x, ei, ej, meas)
+    _, w = _host_robust(r, infos, huber, delta)
+    Wf = infos * w[:, None, None]
+    a3 = np.arange(3)
+    rows, cols, vals = [], [], []
+    for (Ja, va), (Jb, vb) in (((Ji, ei), (Ji, ei)), ((Ji, ei), (Jj, ej)),
+                               ((Jj, ej), (Ji, ei)), ((Jj, ej), (Jj, ej))):
+        blk = np.einsum("eba,ebc,ecd->ead", Ja, Wf, Jb)
+        rows.append(np.broadcast_to(3 * va[:, None, None] + a3[None, :, None], blk.shape).ravel())
+        cols.append(np.broadcast_to(3 * vb[:, None, None] + a3[None, None, :], blk.shape).ravel())
+        vals.append(blk.ravel())
+    H = sp.coo_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+                      shape=(3 * V, 3 * V)).tocsc()
+    g = np.zeros(3 * V)
+    Wr = np.einsum("eab,eb->ea", Wf, r)
+    np.add.at(g, (3 * ei[:, None] + a3).ravel(), np.einsum("eba,eb->ea", Ji, Wr).ravel())
+    np.add.at(g, (3 * ej[:, None] + a3).ravel(), np.einsum("eba,eb->ea", Jj, Wr).ravel())
+    H = H[3:, 3:] + sp.identity(3 * V - 3, format="csc") * lam
+    dx = np.zeros(3 * V)
+    dx[3:] = spl.splu(H).solve(-g[3:])
+    return dx.reshape(V, 3)
+
+
+def spike_step_errors(g, builder, Lc, device="cuda"):
+    """One LM step of each layout on the card against host_step: the
+    linear system at the initial poses, damped by the LM's first lambda
+    (tau x the largest diagonal entry), solved by the whole-chain BCR, the
+    SPIKE core solve (16 segments) and the locality-aware SPIKE solve (16
+    segments, Lc slots). Returns ({layout: relative error}, dropped,
+    lambda)."""
+    import torch
+
+    from delta_graph_slam_tpu_torch.graph import chain_lm
+    from delta_graph_slam_tpu_torch.graph.chain_solve import chain_core_solve, finish_tridiag
+    from delta_graph_slam_tpu_torch.graph.solver import _free_mask, _graph_f64
+    from delta_graph_slam_tpu_torch.parallel import spike
+
+    graph = _graph_f64(g)
+    V = graph.poses.shape[0]
+    free = _free_mask(graph, 0)
+    cr, tail, chi2 = chain_lm._residual_pass(graph, graph.poses, 0, V - 1)
+    bundle, t_off = chain_lm._assemble_bundle(graph, cr, tail, chi2, V - 1, V,
+                                              (free > 0).any(dim=1))
+    K = int(t_off.sum())
+    order = torch.argsort((~t_off).to(torch.int32), stable=True)[:K]
+    off = (tail.i[order], tail.j[order], tail.Ji[order], tail.Jj[order], tail.W[order])
+    lam = 1e-5 * float(torch.diagonal(bundle.A0, dim1=-2, dim2=-1).abs().max())
+    A, B = finish_tridiag(bundle.A0, bundle.B0, free,
+                          torch.tensor(lam, dtype=torch.float64, device=device))
+    local, dropped = spike.spike_local_solve(A, B, -bundle.b, free, V, 16, off, Lc)
+    steps = {"whole": chain_core_solve(A, B, -bundle.b, free, V, off=off),
+             "core16": spike.spike_core_solve(A, B, -bundle.b, free, V, 16, off=off),
+             "auto": local}
+    want = host_step(builder, lam)
+    scale = np.abs(want).max()
+    return ({k: float(np.abs(v.cpu().numpy() - want).max() / scale)
+             for k, v in steps.items()}, int(dropped), lam)
+
+
+@contextlib.contextmanager
+def counted_calls(module, names):
+    """Count the calls of ``module``'s functions ``names`` in the block
+    (which solves a layout took); yields {name: calls}."""
+    calls = {n: 0 for n in names}
+    real = {n: getattr(module, n) for n in names}
+
+    def wrap(n):
+        def f(*a, **kw):
+            calls[n] += 1
+            return real[n](*a, **kw)
+        return f
+
+    for n in names:
+        setattr(module, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(module, n, real[n])
+
+
+def spike_graph(n_nodes):
+    """(init, edges, gt, iterations): phase 6's cold start below 16384
+    nodes; bench_multichip.py:123's warm start (ground truth plus the
+    drift of one 3 s cycle) at 16384."""
+    init, edges, gt = bench_graph(n_nodes)
+    if n_nodes < SPIKE_WARM_NODES:
+        return init, edges, gt, 30
+    rng = np.random.default_rng(7)
+    return gt + rng.normal(0, [0.05, 0.05, 0.005], gt.shape), edges, gt, SPIKE_WARM_ITERS
+
+
+def spike_layouts(report, n_nodes, device="cuda", caps=None, profile=True):
+    """Phase 14's graph half at one size: the three layouts of the SE2
+    solve, each twice, timed, and one step of each against the host."""
+    import torch
+
+    from delta_graph_slam_tpu_torch.graph import SolverConfig, chain_lm, optimize_se2
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    t_start = time.perf_counter()
+    init, edges, gt, iters = spike_graph(n_nodes)
+    b = graph_builder(init, edges, device)
+    g = b.to_arrays(chain_first=True)
+    V = g.poses.shape[0]
+    hint, need = b.count_offchain(0), b.spike_local_need(V, 0)
+    Lc = 8
+    while Lc < need:
+        Lc *= 2
+    base = SolverConfig(backend="chain", max_iterations=iters)
+    layouts = {
+        "whole": (base, {}),
+        "core16": (dataclasses.replace(base, chain_segments=16), {}),
+        "auto": (base, {"local_hint": need}),
+    }
+    out = {"nodes": n_nodes, "offchain": hint, "local_need": need, "Lc": Lc,
+           "iterations_cap": iters, "layouts": {}}
+    print(f"{n_nodes}-node graph built in {time.perf_counter() - t_start:.1f} s", flush=True)
+    errs, dropped, lam = spike_step_errors(g, b, Lc, device)
+    out.update(step_rel_err=errs, step_dropped=dropped, step_lambda=lam)
+    print(f"{n_nodes} nodes ({hint} off-chain edges, local need {need} -> Lc {Lc}): one "
+          f"step against the host float64 solve (lambda {lam:.4g}), relative error "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (limit 1e-9), dropped {dropped}", flush=True)
+    check(all(v <= 1e-9 for v in errs.values()) and dropped == 0,
+          f"{n_nodes}-node SPIKE step errors {errs}, dropped {dropped}")
+    caps = caps or ((2, iters) if iters < 30 else (10, 30))
+    for name, (cfg, kw) in layouts.items():
+        t_layout = time.perf_counter()
+        def solve(c, kw=kw):
+            res = optimize_se2(g, level=0, config=c, off_hint=hint, n_chain=V - 1, **kw)
+            sync()
+            return res
+
+        with counted_calls(chain_lm, ("spike_core_solve", "spike_local_solve")) as calls:
+            runs = [solve(cfg) for _ in range(2)]
+        route = {"whole": set(), "core16": {"spike_core_solve"},
+                 "auto": {"spike_local_solve"}}[name]
+        check({k for k, v in calls.items() if v} == route,
+              f"{n_nodes}-node {name} layout took the solves {calls}")
+        (p1, s1), (p2, s2) = runs
+        same = (float(s1.chi2_final) == float(s2.chi2_final) and s1.iterations == s2.iterations
+                and bool(torch.equal(p1, p2)))
+        ate = float(np.mean(np.linalg.norm(p1.cpu().numpy()[:n_nodes, :2] - gt[:, :2], axis=1)))
+        times = {}
+        for cap in caps:
+            cfg_c = dataclasses.replace(cfg, max_iterations=cap, chi2_rel_tol=0.0, dx_tol=0.0)
+            best, its = float("inf"), 0
+            for _ in range(2):
+                t0 = time.perf_counter()
+                _, st = solve(cfg_c)
+                best = min(best, time.perf_counter() - t0)
+                its = st.iterations
+            times[cap] = (best, its)
+        (t1, i1), (t2, i2) = (times[c] for c in caps)
+        ms_iter = (t2 - t1) * 1000.0 / max(i2 - i1, 1)
+        kernels = lm_launches_per_iteration(solve, cfg) if profile else None
+        rec = {"chi2_initial": float(s1.chi2_initial), "chi2": float(s1.chi2_final),
+               "iterations": s1.iterations, "ate_m": ate,
+               "dropped": int(s1.n_offchain_dropped), "bitwise_repeat": same,
+               "ms_per_iter": ms_iter, "marginal": times, "kernels_per_iter": kernels}
+        out["layouts"][name] = rec
+        print(f"  {name}: chi2 {rec['chi2_initial']!r} -> {rec['chi2']!r} after "
+              f"{s1.iterations} iterations, ATE {ate:.4f} m, dropped {rec['dropped']}, "
+              f"bitwise repeat {same}; {ms_iter:.3f} ms/iteration (marginal {i1}->{i2}), "
+              f"CUDA kernels per iteration "
+              f"{'not measured' if kernels is None else kernels} "
+              f"({time.perf_counter() - t_layout:.1f} s)", flush=True)
+        check(same, f"{n_nodes}-node {name} layout: two solves differ")
+        check(rec["dropped"] == 0, f"{n_nodes}-node {name} layout dropped off-chain edges")
+    # DIVERGENCES.md section 13: one optimum across layouts (converged
+    # quality), held as bench_multichip.py holds it
+    tol = 1e-3 if iters >= 30 else 1e-2
+    ref = out["layouts"]["whole"]["chi2"]
+    for name, rec in out["layouts"].items():
+        check(np.isfinite(rec["chi2"]) and abs(rec["chi2"] - ref) <= tol * ref,
+              f"{n_nodes} nodes: {name} final chi2 {rec['chi2']} against the whole "
+              f"chain's {ref} (tolerance {tol} relative)")
+    report.setdefault("spike", {})[str(n_nodes)] = out
+    return out
+
+
+def prefiltered(frames, device="cuda"):
+    """Phase 4's frames through the delta preset's prefilter: the clouds the
+    odometry aligns."""
+    from delta_graph_slam_tpu_torch.config import get_preset
+    from delta_graph_slam_tpu_torch.models.prefiltering import PrefilteringStage
+
+    stage = PrefilteringStage(get_preset("delta").prefiltering, device)
+    return [stage.process(fr.points).filtered3d for fr in frames]
+
+
+def multibag_drive(reg_cfg, clouds, offsets, n_steps, device="cuda"):
+    """MultiBagOdometry over len(offsets) bags in lockstep for n_steps
+    frames, bag b replaying ``clouds`` from frame offsets[b]
+    (bench_multichip.py:205). Returns
+    (odometry (steps, B, 4, 4), seconds of the timed steps, GN iterations
+    of each step (steps, B))."""
+    import torch
+
+    from delta_graph_slam_tpu_torch.config import get_preset
+    from delta_graph_slam_tpu_torch.parallel import MultiBagOdometry
+
+    odo_cfg = get_preset("delta").odometry
+    mb = MultiBagOdometry(reg_cfg, len(offsets),
+                          keyframe_delta_trans=odo_cfg.keyframe_delta_trans,
+                          keyframe_delta_angle=odo_cfg.keyframe_delta_angle)
+    steps = [[clouds[k + o] for o in offsets] for k in range(n_steps)]
+    mb.process(steps[0])                        # the keyframe targets
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    odom, its = [], []
+    for step in steps[1:]:
+        odom.append(mb.process(step))
+        its.append(mb.last_result.iterations.tolist())
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return np.stack(odom), time.perf_counter() - t0, np.asarray(its)
+
+
+def gn_kernels_per_iteration(reg_cfg, clouds, offsets):
+    """CUDA kernels per GN iteration of the batched align for the bags'
+    first source/target pair (torch.profiler): two aligns capped at 2 and
+    4 iterations with the stop test off, the difference halved."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from delta_graph_slam_tpu_torch.parallel.multibag import _stack
+    from delta_graph_slam_tpu_torch.register.engine import (
+        _make_batched_align_fn, make_registration,
+    )
+
+    reg = make_registration(reg_cfg)
+    tgts = _stack([reg.build_target(clouds[o]) for o in offsets])
+    srcs = _stack([reg.build_source(clouds[o + 1]) for o in offsets])
+    guesses = torch.eye(4, device=tgts.points.device).expand(len(offsets), 4, 4)
+    counts = []
+    for cap in (2, 4):
+        fn = _make_batched_align_fn(dataclasses.replace(
+            reg.cfg, maximum_iterations=cap, transformation_epsilon=0.0))
+        fn(srcs, tgts, guesses)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(srcs, tgts, guesses)
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA))
+    return (counts[1] - counts[0]) / 2 if counts[0] > 0 else None
+
+
+def batched_nn1(report, clouds, device="cuda"):
+    """The batched nn1 launch at the brute drive's shape (B problems of a
+    full-capacity source against a keyframe target): against its plain
+    version and against B single launches (bitwise), timed both ways
+    beside the FP32 bound."""
+    import torch
+
+    from delta_graph_slam_tpu_torch.ops import knn, nn_kernel
+
+    q = torch.stack([clouds[b + 1].points for b in range(MB_BAGS)]).contiguous()
+    qm = torch.stack([clouds[b + 1].mask for b in range(MB_BAGS)]).contiguous()
+    t = torch.stack([clouds[b].points for b in range(MB_BAGS)]).contiguous()
+    tm = torch.stack([clouds[b].mask for b in range(MB_BAGS)]).contiguous()
+    d2, idx = nn_kernel.nn_1_cuda(q, qm, t, tm)
+    d2_r, idx_r = knn.nn_1_reference(q, qm, t, tm)
+    singles = [nn_kernel.nn_1_cuda(q[b], qm[b], t[b], tm[b]) for b in range(MB_BAGS)]
+    torch.cuda.synchronize()
+    fin = torch.isfinite(d2_r)
+    same_inf = bool(torch.equal(torch.isfinite(d2), fin))
+    diff = (d2 - d2_r)[fin].abs()
+    err = float(diff.max())
+    # both versions round |q|^2 - 2 q.t + |t|^2 in float32: hold the gap to
+    # 1e-6 of the expansion's magnitude (~8 float32 ulps; the prefiltered
+    # scans reach 100 m, where 1e-3 m^2 is two ulps of |q|^2)
+    mag = ((q * q).sum(-1) + torch.gather((t * t).sum(-1), 1, idx_r.long()))[fin]
+    rel = float((diff / mag.clamp(min=1.0)).max())
+    agree = float((idx[fin] == idx_r[fin]).float().mean())
+    bitwise = all(torch.equal(a, d2[b]) and torch.equal(i, idx[b])
+                  for b, (a, i) in enumerate(singles))
+    ms = cuda_ms(lambda: nn_kernel.nn_1_cuda(q, qm, t, tm), inner=10)
+    singles_ms = cuda_ms(lambda: [nn_kernel.nn_1_cuda(q[b], qm[b], t[b], tm[b])
+                                  for b in range(MB_BAGS)], inner=10)
+    plain_ms = cuda_ms(lambda: knn.nn_1_reference(q, qm, t, tm), reps=5, warmup=1)
+    pairs = int((qm.sum(1) * tm.sum(1)).sum())
+    flop_ms = FLOP_PER_PAIR * pairs / FP32_FLOPS * 1e3
+    byte_ms = (sum(x.numel() * x.element_size() for x in (q, qm, t, tm))
+               + d2.numel() * 8) / HBM_BYTES_S * 1e3
+    splits, q_tiles = nn_kernel.launch_geometry(q.shape[1], t.shape[1],
+                                                nn_kernel.sm_count(q.device), MB_BAGS)
+    rec = {"shape": list(q.shape), "targets": t.shape[1], "valid_pairs": pairs,
+           "max_abs_err": err, "max_err_over_magnitude": rel,
+           "index_agreement": agree, "singles_bitwise": bitwise,
+           "ms": ms, "singles_ms": singles_ms, "plain_ms": plain_ms,
+           "bound_ms": max(flop_ms, byte_ms),
+           "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+           "splits": splits, "q_tiles": q_tiles, "power_limit": smi("power.limit")}
+    report["nn1_batched"] = rec
+    print(f"nn1 batched, {MB_BAGS} x {q.shape[1]} x {t.shape[1]} ({pairs} valid pairs, "
+          f"{splits} splits x {q_tiles} query tiles a problem): one launch {ms:.4f} ms, "
+          f"{MB_BAGS} single launches {singles_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {rec['bound_ms']:.4f} ms ({100 * rec['bound_ms'] / ms:.1f}% of it); "
+          f"against the plain version max |d2 err| {err:.3g}, {rel:.3g} of |q|^2 + "
+          f"|t|^2 (limit 1e-6), index "
+          f"agreement {agree:.5f} (limit 0.99); single launches bitwise equal {bitwise}; "
+          f"power limit {rec['power_limit']}", flush=True)
+    check(same_inf and rel <= 1e-6 and agree >= 0.99,
+          f"batched nn1 against its plain version: inf pattern {same_inf}, error {err}, "
+          f"index agreement {agree}")
+    check(bitwise, "the batched nn1 launch differs from single launches")
+    return err
+
+
+def run_multibag(report, clouds, device="cuda"):
+    """Phase 14's registration half: B = 1 and B = 8 lockstep drives with
+    voxel then brute correspondences. Returns the nn1 launches of the
+    brute drives."""
+    from delta_graph_slam_tpu_torch.config import get_preset
+    from delta_graph_slam_tpu_torch.ops import nn_kernel
+
+    base = get_preset("delta").odometry.registration
+    launches = 0
+    for method, n_steps in (("voxel", MB_STEPS), ("brute", MB_BRUTE_STEPS)):
+        reg_cfg = dataclasses.replace(base, nn_method=method)
+        nn_kernel.launches = 0
+        single = [multibag_drive(reg_cfg, clouds, [b], n_steps, device)
+                  for b in range(MB_BAGS)]
+        batched = multibag_drive(reg_cfg, clouds, list(range(MB_BAGS)), n_steps, device)
+        n = nn_kernel.launches
+        launches += n
+        odo8, dt8, its8 = batched
+        gap_t = max(float(np.abs(odo8[:, b, :3, 3] - single[b][0][:, 0, :3, 3]).max())
+                    for b in range(MB_BAGS))
+        gap_r = max(float(np.abs(odo8[:, b, :3, :3] - single[b][0][:, 0, :3, :3]).max())
+                    for b in range(MB_BAGS))
+        its_same = all(np.array_equal(its8[:, b], single[b][2][:, 0]) for b in range(MB_BAGS))
+        steps = n_steps - 1
+        sps1 = [steps / s[1] for s in single]
+        sps8 = MB_BAGS * steps / dt8
+        k1 = k8 = None
+        if device != "cpu":
+            k1 = gn_kernels_per_iteration(reg_cfg, clouds, [0])
+            k8 = gn_kernels_per_iteration(reg_cfg, clouds, list(range(MB_BAGS)))
+        rec = {"scans_per_s_B1": sps1, "scans_per_s_B8": sps8,
+               "scaling_B8_over_B1": sps8 / float(np.median(sps1)),
+               "gn_iterations_B8": its8.tolist(), "iterations_equal": its_same,
+               "max_gap_m": gap_t, "max_gap_rot": gap_r, "nn1_launches": n,
+               "kernels_per_gn_iter_B1": k1, "kernels_per_gn_iter_B8": k8,
+               "finite": bool(np.isfinite(odo8).all())}
+        report.setdefault("multibag", {})[method] = rec
+        print(f"MultiBagOdometry {method}, {steps} timed steps: B=1 median "
+              f"{np.median(sps1):.2f} scans/s (bags {min(sps1):.2f}-{max(sps1):.2f}), B={MB_BAGS} "
+              f"{sps8:.2f} aggregate scans/s ({rec['scaling_B8_over_B1']:.2f}x); GN "
+              f"iterations a step mean {its8.mean():.2f}, equal to the B=1 drives {its_same}; "
+              f"largest gap to the B=1 drives {gap_t:.3g} m, {gap_r:.3g} rotation "
+              f"(limits 1e-3, 1e-4); CUDA kernels per GN iteration B=1 {k1}, "
+              f"B={MB_BAGS} {k8}; nn1 launches {n}", flush=True)
+        check(rec["finite"], f"MultiBagOdometry {method}: non-finite odometry")
+        check(gap_t <= 1e-3 and gap_r <= 1e-4,
+              f"MultiBagOdometry {method}: bags differ from their B=1 drives by "
+              f"{gap_t} m, {gap_r} rotation")
+        if method == "brute" and device != "cpu":
+            check(n > 0, "the brute MultiBagOdometry drive launched no nn1 kernel")
+    return launches
+
+
+def run_parallel(report, slice_frames, device="cuda"):
+    """Phase 14: the segmented SE2 solve in its three layouts at two sizes,
+    then batched registration and the batched nn1 launch."""
+    t = time.perf_counter()
+    for n in (GRAPH_NODES, SPIKE_WARM_NODES):
+        spike_layouts(report, n, device)
+    print(f"graph layouts in {time.perf_counter() - t:.1f} s", flush=True)
+    clouds = prefiltered(slice_frames, device)
+    launches = run_multibag(report, clouds, device)
+    if device != "cpu":
+        batched_nn1(report, clouds, device)
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="directory for a JSON report")
@@ -2349,16 +2777,25 @@ def main():
     launches += run_host_runtime(report, slice_frames, world, city, city_gts)
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
+    t = phase(f"parallel: SE2 layouts at {GRAPH_NODES} and {SPIKE_WARM_NODES} nodes, "
+              f"MultiBagOdometry B=1 and B={MB_BAGS}, the batched nn1 launch")
+    launches += run_parallel(report, slice_frames)
+    print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
+
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
         (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    batched = report["nn1_batched"]
     print(json.dumps({"kernels": [{
         "name": "nn1", "route": "cuda",
         "source": "delta_graph_slam_tpu_torch/csrc/nn1.cu",
-        "replaces": REPLACES, "launches": launches, "max_abs_err": err,
+        "replaces": REPLACES, "launches": launches,
+        "max_abs_err": max(err, batched["max_abs_err"]),
         **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "bound_share")},
+        **{f"batched_{k}": batched[k] for k in ("ms", "singles_ms", "plain_ms",
+                                                "bound_ms", "shape")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -60,6 +60,12 @@
 // 5. Staging: plain coalesced float4 loads of a kTile slice of the packed
 //    targets (L2-resident, 16 B a target) into shared memory; the latency
 //    of a tile load is hidden by the other blocks resident on the SM.
+// 6. Batches: B independent problems of equal shapes (queries (B,n,3),
+//    targets (B,m,3), masks per problem) are one launch, the problem index
+//    on blockIdx.z; clusters stay (splits,1,1) within one problem. The
+//    batched registration of parallel/ (the reference's vmap of nn_1) runs
+//    its B correspondence searches this way. Problem 0 is the unbatched
+//    call: the same pointers, the same bits.
 //
 // The tie rule: the first index among equal minima. Within a split, a
 // chunk counts as lowering the minimum only when it does so strictly, so
@@ -186,6 +192,14 @@ nn1_kernel(const float* __restrict__ query, const uint8_t* __restrict__ qmask,
   __shared__ float part_v[kQueries];
   __shared__ int part_c[kQueries];
 
+  // problem blockIdx.z of the batch: its rows of every array
+  const size_t z = blockIdx.z;
+  query += z * n * 3;
+  qmask += z * n;
+  packed += z * m;
+  out_d2 += z * n;
+  out_idx += z * n;
+
   cg::cluster_group cluster = cg::this_cluster();
   const int splits = static_cast<int>(cluster.num_blocks());
   const int split = static_cast<int>(cluster.block_rank());
@@ -309,19 +323,23 @@ nn1_kernel(const float* __restrict__ query, const uint8_t* __restrict__ qmask,
 
 // Launches the pre-pass and the search on `stream` and returns a CUDA error
 // code: non-zero when an argument is out of range or a launch was refused.
-// The caller allocates the outputs and `packed` (m float4), checks n > 0,
-// and picks splits (ops/nn_kernel.py:launch_geometry).
+// `batch` problems lie back to back in every array (batch 1: one problem).
+// The caller allocates the outputs and `packed` (batch * m float4), checks
+// n > 0 and batch * m < 2^31, and picks splits
+// (ops/nn_kernel.py:launch_geometry).
 extern "C" int dgs_nn1(const float* query, const uint8_t* qmask, int n,
                        const float* target, const uint8_t* tmask, int m,
-                       int exclude_self, int splits, void* packed,
+                       int batch, int exclude_self, int splits, void* packed,
                        float* out_d2, int32_t* out_idx, void* stream) {
-  if (n <= 0 || m < 0 || splits < 1 || splits > kMaxSplits) {
+  if (n <= 0 || m < 0 || batch < 1 || batch > 65535 || splits < 1 ||
+      splits > kMaxSplits) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float4* buf = static_cast<float4*>(packed);
   if (m > 0) {
-    pack_targets<<<(m + 255) / 256, 256, 0, s>>>(target, tmask, m, buf);
+    const int bm = batch * m;  // the problems' targets are one array
+    pack_targets<<<(bm + 255) / 256, 256, 0, s>>>(target, tmask, bm, buf);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -332,7 +350,8 @@ extern "C" int dgs_nn1(const float* query, const uint8_t* qmask, int n,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(q_tiles * static_cast<unsigned>(splits));
+  cfg.gridDim = dim3(q_tiles * static_cast<unsigned>(splits), 1,
+                     static_cast<unsigned>(batch));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = s;

@@ -14,7 +14,10 @@ chain-first layout and no refinement). Against the generic loop
   off-chain SET is fixed for a graph and level; only its robust weights
   change);
 - runs one joint BCR apply per iteration over [gradient | C^T]
-  (chain_solve.chain_core_solve);
+  (chain_solve.chain_core_solve), or, with ``chain_segments > 1``, the
+  segmented SPIKE solve of parallel/spike.py (``spike_local_solve`` when
+  ``chain_local_cols > 0`` and off-chain edges exist, else
+  ``spike_core_solve``);
 - assembles the Hessian only on accepted steps.
 
 Semantics of lm_core.lm_optimize (g2o Levenberg schedule, level masking,
@@ -29,6 +32,7 @@ import torch
 
 from ..geom.se2 import normalize_angle
 from ..ops.segment import segment_sum
+from ..parallel.spike import spike_core_solve, spike_local_dropped, spike_local_solve
 from .chain_solve import _scatter_tridiag, chain_core_solve, finish_tridiag, shift_chain
 from .lm_core import LinSys, SolverConfig, SolverStats, bmv
 from .robust import robust_rho, robust_weight
@@ -206,6 +210,15 @@ def lm_se2_chain(graph, level, free, cfg: SolverConfig, n_edges_total):
     gate = live[:, None, None].to(free.dtype)
     off_i, off_j = tail.i[order], tail.j[order]
     n_drop = t_off0.sum() - live.sum()
+    segments = cfg.chain_segments > 1
+    local = segments and cfg.chain_local_cols > 0 and K_cap > 0
+    if local:
+        # the locality-aware segmented solve also drops edges whose
+        # endpoints overflow a segment's slots; the packing is fixed for a
+        # graph and level, so it is counted once, here
+        n_drop = n_drop + spike_local_dropped(off_i, off_j, live, N,
+                                              cfg.chain_segments,
+                                              cfg.chain_local_cols)
 
     def off_rows(b):
         return (off_i, off_j, b.tail.Ji[order] * gate, b.tail.Jj[order] * gate,
@@ -222,8 +235,15 @@ def lm_se2_chain(graph, level, free, cfg: SolverConfig, n_edges_total):
 
     def solve(b, lam):
         A, B = finish_tridiag(b.A0, b.B0, free, lam)
-        return chain_core_solve(A, B, -b.b, free, N,
-                                off=off_rows(b) if K_cap > 0 else None)
+        off = off_rows(b) if K_cap > 0 else None
+        if local:
+            return spike_local_solve(A, B, -b.b, free, N, p=cfg.chain_segments,
+                                     off=off, Lc=cfg.chain_local_cols,
+                                     mesh_axis=cfg.chain_mesh_axis)[0]
+        if segments:
+            return spike_core_solve(A, B, -b.b, free, N, p=cfg.chain_segments,
+                                    off=off, mesh_axis=cfg.chain_mesh_axis)
+        return chain_core_solve(A, B, -b.b, free, N, off=off)
 
     chi2_0 = chi2 = bundle.chi2
     skipped, lam_ok = torch.stack([skip, lam < 1e12]).tolist()

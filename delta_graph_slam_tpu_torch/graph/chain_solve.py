@@ -156,53 +156,63 @@ def _inv_blocks(A):
 def bcr_factor(A, B, base_blocks=1):
     """Cyclic-reduction factorization of the block-tridiagonal T.
 
-    A (M,D,D), B (M,D,D) sub-diagonal (B[0] = 0); M a power of two.
+    A (..., M, D, D), B (..., M, D, D) sub-diagonal (B[..., 0, :, :] = 0);
+    M a power of two. Leading dimensions are a batch of independent chains
+    (the segments of parallel/spike.py), all reduced by the same launches.
     Reduces until at most ``base_blocks`` blocks remain and inverts those
     densely (the adjugate for a single 3x3 block). Returns (levels,
     base_inv); each level holds what a sweep of any right-hand side needs.
     """
-    D = A.shape[1]
+    D = A.shape[-1]
     levels = []
-    while A.shape[0] > base_blocks:
-        Ao_inv = _inv_blocks(A[1::2])
-        B_o = B[1::2]                                        # B[o], o = 2t+1
-        B_o1 = torch.cat([B[2::2], torch.zeros_like(B[:1])])  # B[o+1]
-        B_e = B[0::2]                                        # B[k], k = 2t
+    while A.shape[-3] > base_blocks:
+        Ao_inv = _inv_blocks(A[..., 1::2, :, :])
+        B_o = B[..., 1::2, :, :]                             # B[o], o = 2t+1
+        B_o1 = torch.cat([B[..., 2::2, :, :],                # B[o+1]
+                          torch.zeros_like(B[..., :1, :, :])], dim=-3)
+        B_e = B[..., 0::2, :, :]                             # B[k], k = 2t
         Ao_inv_Bo = Ao_inv @ B_o
         Ao_inv_B1T = Ao_inv @ _T(B_o1)
         levels.append((Ao_inv, B_o, B_e, Ao_inv_Bo, Ao_inv_B1T))
-        A = (A[0::2] - _T(B_o) @ Ao_inv_Bo                   # right odd nbr
-             - B_e @ torch.roll(Ao_inv_B1T, 1, dims=0))      # left odd nbr
-        B = -(B_e @ torch.roll(Ao_inv_Bo, 1, dims=0))
-        B[0] = 0.0
+        A = (A[..., 0::2, :, :] - _T(B_o) @ Ao_inv_Bo        # right odd nbr
+             - B_e @ torch.roll(Ao_inv_B1T, 1, dims=-3))     # left odd nbr
+        B = -(B_e @ torch.roll(Ao_inv_Bo, 1, dims=-3))
+        B[..., 0, :, :] = 0.0
 
-    Mb = A.shape[0]
+    Mb = A.shape[-3]
     if Mb == 1:
-        return levels, _inv_blocks(A[0])
-    Hd = A.new_zeros((Mb, D, Mb, D))
+        return levels, _inv_blocks(A[..., 0, :, :])
+    batch = A.shape[:-3]
+    A, B = A.reshape((-1, Mb, D, D)), B.reshape((-1, Mb, D, D))
+    Hd = A.new_zeros((A.shape[0], Mb, D, Mb, D))
     idx = torch.arange(Mb, device=A.device)
-    Hd[idx, :, idx, :] = A
-    Hd[idx[1:], :, idx[:-1], :] = B[1:]
-    Hd[idx[:-1], :, idx[1:], :] = _T(B[1:])
-    return levels, torch.linalg.inv_ex(Hd.reshape(Mb * D, Mb * D)).inverse
+    Hd[:, idx, :, idx, :] = A.transpose(0, 1)
+    Hd[:, idx[1:], :, idx[:-1], :] = B[:, 1:].transpose(0, 1)
+    Hd[:, idx[:-1], :, idx[1:], :] = _T(B[:, 1:]).transpose(0, 1)
+    Hd = Hd.reshape(batch + (Mb * D, Mb * D))
+    return levels, torch.linalg.inv_ex(Hd).inverse
 
 
 def bcr_apply(factors, g):
-    """Solve T x = g with a bcr_factor result. g: (M,D,R)."""
+    """Solve T x = g with a bcr_factor result. g: (..., M, D, R), with the
+    factors' leading dimensions."""
     levels, base_inv = factors
     saved = []
     for Ao_inv, B_o, B_e, _, _ in levels:
-        t1 = Ao_inv @ g[1::2]
+        t1 = Ao_inv @ g[..., 1::2, :, :]
         saved.append(t1)
-        g = g[0::2] - _T(B_o) @ t1 - B_e @ torch.roll(t1, 1, dims=0)
+        g = (g[..., 0::2, :, :] - _T(B_o) @ t1
+             - B_e @ torch.roll(t1, 1, dims=-3))
 
-    Mb, D, R = g.shape
-    x = (base_inv @ g.reshape(Mb * D, R)).reshape(Mb, D, R)
+    Mb, D, R = g.shape[-3:]
+    batch = g.shape[:-3]
+    x = (base_inv @ g.reshape(batch + (Mb * D, R))).reshape(batch + (Mb, D, R))
     for (_, _, _, Ao_inv_Bo, Ao_inv_B1T), t1 in zip(reversed(levels),
                                                      reversed(saved)):
-        x_right = torch.cat([x[1:], torch.zeros_like(x[:1])])
+        x_right = torch.cat([x[..., 1:, :, :], torch.zeros_like(x[..., :1, :, :])],
+                            dim=-3)
         x_odd = t1 - Ao_inv_Bo @ x - Ao_inv_B1T @ x_right
-        x = torch.stack([x, x_odd], dim=1).reshape((-1,) + tuple(x.shape[1:]))
+        x = torch.stack([x, x_odd], dim=-3).reshape(batch + (-1, D, R))
     return x
 
 

@@ -61,11 +61,19 @@ class SolverConfig:
     # capacity for pose<->hub coupling edges in the hub solve (one per
     # keyframe with a floor in the hdl pipeline)
     chain_coupling_capacity: int = 4096
-    # the fields below configure a path of the JAX package that this port
-    # does not have (the segmented SPIKE solve); they are kept so configs
-    # carry across, and a value that asks for that path raises
+    # > 1 splits the chain of the fused SE2 chain LM (graph/chain_lm.py)
+    # into this many segments, solved by SPIKE substructuring
+    # (parallel/spike.py); optimize_se2 sets it for large graphs given a
+    # local_hint, optimize_se2_sharded to the mesh axis size. The generic
+    # LM and the SE3 solve ignore it, as in the JAX package
     chain_segments: int = 0
+    # the JAX package's mesh axis for the segment dimension; on one card
+    # the segments are a batch dimension and the name changes nothing
     chain_mesh_axis: str = None
+    # > 0 (with chain_segments > 1 and off-chain edges) takes the
+    # locality-aware segmented solve: each segment sweeps its right-hand
+    # side, its two interfaces and up to chain_local_cols endpoint slots;
+    # edges beyond the slots are dropped (counted in n_offchain_dropped)
     chain_local_cols: int = 0
 
 

@@ -183,6 +183,26 @@ class SE2GraphBuilder:
                 n += 1
         return n
 
+    def spike_local_need(self, n_vertices_cap, level=0, p=16):
+        """The largest per-segment endpoint-slot count of the locality-aware
+        SPIKE solve (parallel/spike.py): off-chain edge endpoints binned
+        into the p segments of the padded vertex table as
+        _pack_endpoint_slots bins them (segment size ceil(N/p) rounded up
+        to a power of two). Feeds optimize_se2's local_hint, so that the
+        slot capacity fits the need and no edge is dropped."""
+        m = -(-n_vertices_cap // p)
+        if m & (m - 1):
+            m = 1 << max(m - 1, 1).bit_length()
+        counts = [0] * (p + 1)
+        for e in self.edges:
+            if e["type"] != "se2" or e["level"] != level:
+                continue
+            i, j = e["i"], e["j"]
+            if abs(i - j) > 1 and not self.fixed[i] and not self.fixed[j]:
+                counts[min(i // m, p)] += 1
+                counts[min(j // m, p)] += 1
+        return max(counts[:p])
+
     def remove_edge(self, eid):
         for e in self.edges:
             if e["id"] == eid:

@@ -422,10 +422,6 @@ def optimize_se3(graph: SE3Graph, level=0, config: SolverConfig = None,
     graph's tables, which on the card is one host read.
     """
     config = config or SolverConfig()
-    if config.chain_segments > 1:
-        raise NotImplementedError(
-            "chain_segments > 1 (the SPIKE solve of parallel/spike.py) is not "
-            "ported")
     if config.backend == "chain":
         n_hub = graph.planes.shape[0] + graph.points.shape[0]
         # coupling capacity: every pose<->hub edge comes from the se3_plane /

@@ -159,11 +159,16 @@ def _n_edges_total(graph: SE2Graph):
             + graph.priors_yaw.mask.sum())
 
 
+def _graph_f64(graph: SE2Graph) -> SE2Graph:
+    """The graph with float64 poses and edge values (the solver's state)."""
+    return SE2Graph(graph.poses.to(torch.float64), graph.fixed, graph.vmask,
+                    *(t._replace(**{k: getattr(t, k).to(torch.float64)
+                                    for k in ("meas", "info", "delta")})
+                      for t in (graph.edges, graph.priors_xy, graph.priors_yaw)))
+
+
 def _optimize(graph: SE2Graph, level, cfg: SolverConfig):
-    graph = SE2Graph(graph.poses.to(torch.float64), graph.fixed, graph.vmask,
-                     *(t._replace(**{k: getattr(t, k).to(torch.float64)
-                                     for k in ("meas", "info", "delta")})
-                       for t in (graph.edges, graph.priors_xy, graph.priors_yaw)))
+    graph = _graph_f64(graph)
     free = _free_mask(graph, level)
     if (cfg.backend == "chain" and cfg.chain_layout > 0
             and cfg.chain_precision == "df" and cfg.chain_refine_steps == 0):
@@ -175,6 +180,16 @@ def _optimize(graph: SE2Graph, level, cfg: SolverConfig):
         _apply_update, graph.poses, free, cfg,
         n_edges_total=_n_edges_total(graph),
     )
+
+
+# segment count of the automatic locality-aware SPIKE solve, and its limits
+# (the JAX package's graph/solver.py): below SPIKE_AUTO_MIN_N vertices the
+# whole-chain BCR is already cheap; above SPIKE_AUTO_MAX_LC endpoint slots a
+# segment the local sweep is wider than the problem is sparse, and the
+# global Woodbury of the whole-chain solve stays
+SPIKE_AUTO_P = 16
+SPIKE_AUTO_MIN_N = 2048
+SPIKE_AUTO_MAX_LC = 128
 
 
 def optimize_se2(graph: SE2Graph, level=0, config: SolverConfig = None,
@@ -194,18 +209,16 @@ def optimize_se2(graph: SE2Graph, level=0, config: SolverConfig = None,
     to_arrays(chain_first=True); the chain backend then assembles the block
     tridiagonal and gradient by shifts.
 
-    local_hint is accepted for the JAX package's signature and not used:
-    its automatic route of large graphs (>= 2048 vertices) through the
-    segmented SPIKE solve is a TPU layout choice of the same algebra, and
-    this port solves the whole chain there; the final chi2 and ATE agree,
-    the poses need not bit for bit. An explicit ``chain_segments > 1``
-    raises.
+    local_hint: host-known largest per-segment endpoint-slot need
+    (SE2GraphBuilder.spike_local_need(N, level, p=SPIKE_AUTO_P)). Given it,
+    an off_hint, the chain backend and no explicit chain_segments, a graph
+    of at least SPIKE_AUTO_MIN_N vertices is solved by the locality-aware
+    SPIKE solve (parallel/spike.py) with SPIKE_AUTO_P segments and the slot
+    capacity bucketed to the hint (powers of two from 8, at most
+    SPIKE_AUTO_MAX_LC), as the JAX package routes it. An explicit
+    ``chain_segments > 1`` takes the segmented solve at any size.
     """
     config = config or SolverConfig()
-    if config.chain_segments > 1:
-        raise NotImplementedError(
-            "chain_segments > 1 (the SPIKE solve of parallel/spike.py) is not "
-            "ported")
     if n_chain and config.backend == "chain" and n_chain != config.chain_layout:
         config = dataclasses.replace(config, chain_layout=n_chain)
     if off_hint is not None and config.backend == "chain":
@@ -217,6 +230,15 @@ def optimize_se2(graph: SE2Graph, level=0, config: SolverConfig = None,
             k *= 2
         if k != config.chain_offrank_capacity:
             config = dataclasses.replace(config, chain_offrank_capacity=k)
+    if (local_hint is not None and config.backend == "chain"
+            and config.chain_segments == 0 and off_hint
+            and graph.poses.shape[0] >= SPIKE_AUTO_MIN_N):
+        lc = 8
+        while lc < local_hint:
+            lc *= 2
+        if lc <= SPIKE_AUTO_MAX_LC:
+            config = dataclasses.replace(config, chain_segments=SPIKE_AUTO_P,
+                                         chain_local_cols=lc)
     with deterministic():
         poses, stats = _optimize(graph, int(level), config)
     return poses.to(graph.poses.dtype), stats

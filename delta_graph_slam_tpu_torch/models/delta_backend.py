@@ -693,10 +693,14 @@ class DeltaBackend:
             max_iterations=min(self.cfg.solver.max_iterations,
                                self.cfg.g2o_solver_num_iterations),
         )
+        off_hint = local_hint = None
+        if chain:
+            off_hint = self.graph.count_offchain(level)
+            local_hint = self.graph.spike_local_need(g.poses.shape[0], level)
         poses, stats = optimize_se2(
-            g, level=level, config=cfg,
-            off_hint=self.graph.count_offchain(level) if chain else None,
+            g, level=level, config=cfg, off_hint=off_hint,
             n_chain=g.poses.shape[0] - 1 if chain else 0,
+            local_hint=local_hint,
         )
         self.graph.update_poses(poses)
         return stats

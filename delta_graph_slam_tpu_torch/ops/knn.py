@@ -16,15 +16,16 @@ _INF = float("inf")
 
 
 def _dist2(query, tgt_chunk):
-    # |q - t|^2 = |q|^2 - 2 q.t + |t|^2, in full float32 (no TF32)
+    # |q - t|^2 = |q|^2 - 2 q.t + |t|^2, in full float32 (no TF32); leading
+    # dimensions are a batch of problems
     qq = (query * query).sum(-1, keepdim=True)
     tt = (tgt_chunk * tgt_chunk).sum(-1)
-    qt = query @ tgt_chunk.T
-    return torch.clamp(qq - 2.0 * qt + tt[None, :], min=0.0)
+    qt = query @ tgt_chunk.transpose(-1, -2)
+    return torch.clamp(qq - 2.0 * qt + tt[..., None, :], min=0.0)
 
 
 def _valid(mc, start, n, exclude_self, device):
-    valid = mc[None, :]
+    valid = mc[..., None, :]
     if exclude_self:
         tglobal = start + torch.arange(mc.shape[0], device=device)
         valid = valid & (tglobal[None, :] != torch.arange(n, device=device)[:, None])
@@ -35,7 +36,9 @@ def nn_1(query, qmask, target, tmask, *, exclude_self=False, chunk=2048):
     """1-nearest-neighbour. Returns (dist2 (N,), idx (N,) int32).
 
     Invalid queries get dist2 = inf. ``exclude_self`` skips the target with
-    the same index as the query (same-cloud searches).
+    the same index as the query (same-cloud searches). Batched: query
+    (B,N,3), qmask (B,N), target (B,M,3), tmask (B,M) are B independent
+    problems (one kernel launch on the card); the outputs are (B,N).
     """
     if query.device.type == "cpu":
         return nn_1_reference(query, qmask, target, tmask,
@@ -50,16 +53,18 @@ def nn_1_reference(query, qmask, target, tmask, *, exclude_self=False,
 
     The first index wins among equal minima inside a chunk
     (``torch.min`` returns the first) and a later chunk must be strictly
-    better, as in ops/knn.py:nn_1 of the JAX package.
+    better, as in ops/knn.py:nn_1 of the JAX package. Leading dimensions
+    of the inputs are a batch of problems, as in ``nn_1``.
     """
-    n, device = query.shape[0], query.device
-    best_d = torch.full((n,), _INF, dtype=query.dtype, device=device)
-    best_i = torch.zeros((n,), dtype=torch.int32, device=device)
-    for start in range(0, target.shape[0], chunk):
-        tc = target[start:start + chunk]
-        valid = _valid(tmask[start:start + chunk], start, n, exclude_self, device)
+    n, device = query.shape[-2], query.device
+    best_d = torch.full(query.shape[:-1], _INF, dtype=query.dtype, device=device)
+    best_i = torch.zeros(query.shape[:-1], dtype=torch.int32, device=device)
+    for start in range(0, target.shape[-2], chunk):
+        tc = target[..., start:start + chunk, :]
+        valid = _valid(tmask[..., start:start + chunk], start, n, exclude_self,
+                       device)
         d2 = torch.where(valid, _dist2(query, tc), _INF)
-        cmin, carg = d2.min(dim=1)
+        cmin, carg = d2.min(dim=-1)
         better = cmin < best_d
         best_d = torch.where(better, cmin, best_d)
         best_i = torch.where(better, (start + carg).to(torch.int32), best_i)

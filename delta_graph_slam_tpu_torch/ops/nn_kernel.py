@@ -95,20 +95,23 @@ def build() -> Path:
     return out
 
 
-def launch_geometry(n: int, m: int, sm_count: int):
-    """(splits, q_tiles) of one launch for n queries and m targets.
+def launch_geometry(n: int, m: int, sm_count: int, batch: int = 1):
+    """(splits, q_tiles) of one launch for ``batch`` problems of n queries
+    and m targets each.
 
-    The query axis gives q_tiles blocks; each gets ``splits`` blocks (one
-    cluster), split s scanning the target tiles s, s + splits, ...: the
-    largest power of two up to MAX_SPLITS that keeps the grid within
-    BLOCKS_PER_SM blocks an SM (at least one split), and never more
-    splits than target tiles, so that every split has a tile.
+    The query axis gives q_tiles blocks a problem; each gets ``splits``
+    blocks (one cluster), split s scanning the target tiles s, s + splits,
+    ...: the largest power of two up to MAX_SPLITS that keeps the grid
+    (batch x q_tiles x splits blocks) within BLOCKS_PER_SM blocks an SM (at
+    least one split), and never more splits than target tiles, so that
+    every split has a tile.
     """
-    if n < 1 or m < 0 or sm_count < 1:
-        raise ValueError(f"bad geometry request: n={n} m={m} sm_count={sm_count}")
+    if n < 1 or m < 0 or sm_count < 1 or batch < 1:
+        raise ValueError(f"bad geometry request: n={n} m={m} sm_count={sm_count} "
+                         f"batch={batch}")
     q_tiles = math.ceil(n / QUERIES_PER_BLOCK)
     splits = 1
-    while splits * 2 <= min(BLOCKS_PER_SM * sm_count / q_tiles, MAX_SPLITS):
+    while splits * 2 <= min(BLOCKS_PER_SM * sm_count / (q_tiles * batch), MAX_SPLITS):
         splits *= 2
     return min(splits, max(1, math.ceil(m / TILE))), q_tiles
 
@@ -131,7 +134,7 @@ def _library():
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
@@ -139,24 +142,26 @@ def _library():
     return _lib
 
 
-def _check_points(name, x, device):
+def _check_points(name, x, device, batch):
     if not x.is_cuda or x.device != device:
         raise ValueError(f"{name} must be on {device}, got {x.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {x.dtype}")
-    if x.ndim != 2 or x.shape[1] != 3:
-        raise ValueError(f"{name} must be (N, 3), got {tuple(x.shape)}")
+    lead = () if batch is None else (batch,)
+    if x.shape[:-2] != lead or x.shape[-1] != 3:
+        want = "(N, 3)" if batch is None else f"({batch}, N, 3)"
+        raise ValueError(f"{name} must be {want}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_mask(name, mask, n, device):
+def _check_mask(name, mask, shape, device):
     if mask.device != device:
         raise ValueError(f"{name} must be on {device}, got {mask.device}")
     if mask.dtype not in (torch.bool, torch.uint8):
         raise TypeError(f"{name} must be bool or uint8, got {mask.dtype}")
-    if mask.shape != (n,):
-        raise ValueError(f"{name} must be ({n},), got {tuple(mask.shape)}")
+    if tuple(mask.shape) != shape:
+        raise ValueError(f"{name} must be {shape}, got {tuple(mask.shape)}")
     if not mask.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
@@ -165,29 +170,34 @@ def nn_1_cuda(query, qmask, target, tmask, *, exclude_self=False):
     """Exact 1-NN on the card. Returns (d2 (N,) float32, idx (N,) int32).
 
     Same contract as ops/knn.py:nn_1, except that an invalid query gets
-    idx = 0 (the plain version leaves its index unmasked).
+    idx = 0 (the plain version leaves its index unmasked). Batched: query
+    (B,N,3), qmask (B,N), target (B,M,3), tmask (B,M) are B independent
+    problems, searched by one launch; the outputs are (B,N).
     """
     global launches
     device = query.device
-    _check_points("query", query, device)
-    _check_points("target", target, device)
-    n, m = query.shape[0], target.shape[0]
-    _check_mask("qmask", qmask, n, device)
-    _check_mask("tmask", tmask, m, device)
-    if max(n, m) >= 2**31 // 3:
-        raise ValueError(f"too many points for int32 indexing: {n}, {m}")
-    d2 = torch.empty((n,), dtype=torch.float32, device=device)
-    idx = torch.empty((n,), dtype=torch.int32, device=device)
-    if n == 0:
+    batch = query.shape[0] if query.ndim == 3 else None
+    _check_points("query", query, device, batch)
+    _check_points("target", target, device, batch)
+    n, m = query.shape[-2], target.shape[-2]
+    lead = () if batch is None else (batch,)
+    _check_mask("qmask", qmask, lead + (n,), device)
+    _check_mask("tmask", tmask, lead + (m,), device)
+    nb = batch or 1
+    if nb * max(n, m) >= 2**31 // 3 or nb > 65535:
+        raise ValueError(f"too many points for int32 indexing: {nb} x {n}, {m}")
+    d2 = torch.empty(lead + (n,), dtype=torch.float32, device=device)
+    idx = torch.empty(lead + (n,), dtype=torch.int32, device=device)
+    if n == 0 or nb == 0:
         return d2, idx
-    splits, _ = launch_geometry(n, m, sm_count(device))
+    splits, _ = launch_geometry(n, m, sm_count(device), nb)
     lib = _library()
-    packed = torch.empty((max(m, 1), 4), dtype=torch.float32, device=device)
+    packed = torch.empty((max(nb * m, 1), 4), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.dgs_nn1(
             query.data_ptr(), qmask.data_ptr(), n,
-            target.data_ptr(), tmask.data_ptr(), m,
+            target.data_ptr(), tmask.data_ptr(), m, nb,
             int(bool(exclude_self)), splits, packed.data_ptr(),
             d2.data_ptr(), idx.data_ptr(), stream,
         )

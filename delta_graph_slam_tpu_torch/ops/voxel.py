@@ -236,19 +236,36 @@ def build_voxel_hash(cloud: MaskedCloud, resolution, capacity_voxels, bits=10,
     )
 
 
+def batch_take(table, idx, batched=True):
+    """``table[idx]``, problem by problem for a batch: table (B, L, ...)
+    and idx (B, ...) gather row idx[b, ...] of table[b] (one gather over
+    the flattened table). ``batched=False`` is the plain ``table[idx]``."""
+    if not batched:
+        return table[idx]
+    B, L = table.shape[:2]
+    base = torch.arange(B, device=idx.device) * L
+    flat = table.reshape((B * L,) + tuple(table.shape[2:]))
+    return flat[idx + base.view((B,) + (1,) * (idx.ndim - 1))]
+
+
 def voxel_lookup(vh: VoxelHash, query_points, query_mask, offsets=None,
                  dense_bits=DENSE_BITS):
     """Find the voxel slot for each query point (and optional neighbour cells).
 
     offsets: (M, 3) int cell offsets (e.g. 7- or 27-neighbourhood); default
     just the containing cell. Returns (slots (N, M) int64, hit (N, M) bool).
+    Batched: query (B,N,3) and mask (B,N) against a hash whose tensors are
+    stacked per problem (parallel/multibag.py:_stack) give (B,N,M) slots
+    into each problem's own table.
     """
     device = query_points.device
+    batched = query_points.ndim == 3
     if offsets is None:
         offsets = np.zeros((1, 3), np.int32)
     offsets = torch.as_tensor(np.asarray(offsets, np.int32), device=device)
-    coords = voxel_coords(query_points, vh.resolution) - vh.origin
-    cand = coords[:, None, :] + offsets[None, :, :]  # (N, M, 3)
+    origin = vh.origin[:, None, :] if batched else vh.origin
+    coords = voxel_coords(query_points, vh.resolution) - origin
+    cand = coords[..., None, :] + offsets  # (..., N, M, 3)
     if vh.dense_slot is not None:
         bx, by, bz = dense_bits
         hi = torch.tensor([(1 << bx) - 1, (1 << by) - 1, (1 << bz) - 1],
@@ -256,14 +273,15 @@ def voxel_lookup(vh: VoxelHash, query_points, query_mask, offsets=None,
         in_range = ((cand >= 0) & (cand <= hi)).all(dim=-1)
         c = torch.minimum(torch.clamp(cand, min=0), hi)
         flat = (c[..., 0] << (by + bz)) | (c[..., 1] << bz) | c[..., 2]
-        slot = vh.dense_slot[flat.to(torch.int64)]
-        hit = (slot >= 0) & in_range & query_mask[:, None]
+        slot = batch_take(vh.dense_slot, flat.to(torch.int64), batched)
+        hit = (slot >= 0) & in_range & query_mask[..., None]
         return torch.clamp(slot, min=0).to(torch.int64), hit
     bits = vh.bits
     in_range = ((cand >= 0) & (cand < (1 << bits))).all(dim=-1)
     cand = torch.clamp(cand, 0, (1 << bits) - 1)
     key = (cand[..., 0] << (2 * bits)) | (cand[..., 1] << bits) | cand[..., 2]
-    slot = torch.searchsorted(vh.keys, key.reshape(-1), side="left").reshape(key.shape)
-    slot = torch.clamp(slot, 0, vh.keys.shape[0] - 1)
-    hit = (vh.keys[slot] == key) & in_range & query_mask[:, None]
+    flat_key = key.reshape(key.shape[0], -1) if batched else key.reshape(-1)
+    slot = torch.searchsorted(vh.keys, flat_key, side="left").reshape(key.shape)
+    slot = torch.clamp(slot, 0, vh.keys.shape[-1] - 1)
+    hit = (batch_take(vh.keys, slot, batched) == key) & in_range & query_mask[..., None]
     return slot, hit

@@ -9,22 +9,25 @@ exact brute-force path.
 import torch
 
 from .knn import smallest_k
-from .voxel import VoxelHash, voxel_lookup
+from .voxel import VoxelHash, batch_take, voxel_lookup
 
 _INF = float("inf")
 
 
 def _candidates(vh: VoxelHash, query, qmask, offsets, window):
     """Candidate indices (N, M, W) into vh.sorted_points, their validity
-    and squared distances to the queries."""
+    and squared distances to the queries (with a leading B for a batch of
+    problems against a stacked hash, as voxel_lookup)."""
+    batched = query.ndim == 3
     slots, hit = voxel_lookup(vh, query, qmask, offsets=offsets)  # (N,M)
-    starts = vh.starts[slots]
-    counts = vh.counts[slots].to(torch.int32)
+    starts = batch_take(vh.starts, slots, batched)
+    counts = batch_take(vh.counts, slots, batched).to(torch.int32)
     w = torch.arange(window, dtype=torch.int32, device=query.device)
-    cand = starts[:, :, None] + w
-    cvalid = hit[:, :, None] & (w < counts[:, :, None])
-    cand = torch.clamp(cand, 0, vh.sorted_points.shape[0] - 1).to(torch.int64)
-    diff = vh.sorted_points[cand] - query[:, None, None, :]
+    cand = starts[..., None] + w
+    cvalid = hit[..., None] & (w < counts[..., None])
+    cand = torch.clamp(cand, 0, vh.sorted_points.shape[-2] - 1).to(torch.int64)
+    diff = (batch_take(vh.sorted_points, cand, batched)
+            - query[..., :, None, None, :])
     d2 = (diff * diff).sum(-1)
     return cand, cvalid, d2
 
@@ -33,7 +36,7 @@ def voxel_nn(vh: VoxelHash, query, qmask, offsets, window=8, max_d2=_INF):
     """1-NN among windowed candidates. Returns (d2 (N,), idx (N,) into
     vh.sorted_points, valid (N,))."""
     d2, idx, valid = voxel_knn(vh, query, qmask, 1, offsets, window, max_d2)
-    return d2[:, 0], idx[:, 0], valid[:, 0]
+    return d2[..., 0], idx[..., 0], valid[..., 0]
 
 
 def voxel_knn(vh: VoxelHash, query, qmask, k, offsets, window=8, max_d2=_INF):
@@ -42,18 +45,19 @@ def voxel_knn(vh: VoxelHash, query, qmask, k, offsets, window=8, max_d2=_INF):
     Returns (d2 (N,k) ascending, idx (N,k) indices into vh.sorted_points,
     valid (N,k)). Missing candidates -> d2 = inf. Among equal distances the
     earlier candidate wins, as with argmin and lax.top_k in the reference.
+    k = 1 also takes a batch of problems (query (B,N,3)), as voxel_lookup.
     """
     cand, cvalid, d2 = _candidates(vh, query, qmask, offsets, window)
-    n = cand.shape[0]
-    d2 = torch.where(cvalid & (d2 <= max_d2), d2, _INF).reshape(n, -1)
-    candf = cand.reshape(n, -1)
+    lead = tuple(cand.shape[:-2])
+    d2 = torch.where(cvalid & (d2 <= max_d2), d2, _INF).reshape(lead + (-1,))
+    candf = cand.reshape(lead + (-1,))
     if k == 1:
-        best = torch.argmin(d2, dim=1, keepdim=True)  # first among equal minima
-        bd = torch.gather(d2, 1, best)
-        bi = torch.gather(candf, 1, best)
+        best = torch.argmin(d2, dim=-1, keepdim=True)  # first among equal minima
+        bd = torch.gather(d2, -1, best)
+        bi = torch.gather(candf, -1, best)
     else:
         bd, bi = smallest_k(d2, candf, k)
-    return bd, bi, torch.isfinite(bd) & qmask[:, None]
+    return bd, bi, torch.isfinite(bd) & qmask[..., None]
 
 
 def voxel_radius_count(vh: VoxelHash, query, qmask, radius, offsets,

@@ -19,6 +19,12 @@ Heads:
 
 The voxel heads are gathers and batched 3x3 algebra over K = N x offsets
 residuals: plain PyTorch, no kernel of their own.
+
+``_make_batched_align_fn`` is the counterpart of the JAX package's
+``jax.vmap(_make_align_fn(cfg))`` (parallel/sharding.py, multibag.py): B
+problems with stacked models run one launch sequence a GN iteration, each
+frozen once its own step is below the threshold, as vmap of a while_loop
+freezes it; brute correspondences are one batched launch of the 1-NN kernel.
 """
 
 import dataclasses
@@ -31,7 +37,7 @@ import torch
 from ..geom.se3 import _skew, se3_exp
 from ..ops.cloud import MaskedCloud
 from ..ops.knn import nn_1
-from ..ops.voxel import VoxelHash, build_voxel_hash, voxel_lookup
+from ..ops.voxel import VoxelHash, batch_take, build_voxel_hash, voxel_lookup
 from ..ops.voxel_knn import voxel_knn_covariances, voxel_nn
 from .config import RegistrationConfig
 from .covariance import dense_covariances, knn_covariances, regularize_covariances
@@ -59,6 +65,8 @@ class SourceModel(NamedTuple):
 
 
 class RegistrationResult(NamedTuple):
+    # a batched align gives every field a leading B (converged and
+    # iterations as (B,) tensors)
     transformation: torch.Tensor    # (4,4) T s.t. T @ source ~ target
     converged: bool
     iterations: int
@@ -113,21 +121,23 @@ def _normal_equations(p, r, M, valid):
     p: (K,3) transformed source points (Jacobian anchor)
     r: (K,3) residuals, M: (K,3,3) information, valid: (K,) bool.
     J_k = [I | -skew(p_k)] (3,6) for left-multiplicative se3 updates.
+    Leading dimensions are a batch of problems ((B,6,6) and (B,6)).
     """
     w = valid.to(p.dtype)
-    Mw = M * w[:, None, None]
+    Mw = M * w[..., None, None]
     S = _skew(p)
     MS = Mw @ S
     StMS = S.transpose(-1, -2) @ MS
-    H_tt = Mw.sum(0)
-    H_tw = -MS.sum(0)
-    H_ww = StMS.sum(0)
-    H = torch.cat([torch.cat([H_tt, H_tw], 1), torch.cat([H_tw.T, H_ww], 1)], 0)
+    H_tt = Mw.sum(-3)
+    H_tw = -MS.sum(-3)
+    H_ww = StMS.sum(-3)
+    H = torch.cat([torch.cat([H_tt, H_tw], -1),
+                   torch.cat([H_tw.transpose(-1, -2), H_ww], -1)], -2)
     Mr = (Mw @ r[..., None])[..., 0]
-    b_t = Mr.sum(0)
+    b_t = Mr.sum(-2)
     # J_w = -skew(p), so b_w = J_w^T M r = (-S)^T M r = +S M r
-    b_w = (S @ Mr[..., None])[..., 0].sum(0)
-    return H, torch.cat([b_t, b_w]), (r * Mr).sum()
+    b_w = (S @ Mr[..., None])[..., 0].sum(-2)
+    return H, torch.cat([b_t, b_w], -1), (r * Mr).sum((-2, -1))
 
 
 def _ndt_gauss_d2(resolution, outlier_ratio):
@@ -140,6 +150,8 @@ def _ndt_gauss_d2(resolution, outlier_ratio):
 
 
 def _transform(points, T):
+    if T.ndim == 3:     # a batch: (B,N,3) points, (B,4,4) transforms
+        return points @ T[:, :3, :3].transpose(-1, -2) + T[:, None, :3, 3]
     return points @ T[:3, :3].T + T[:3, 3]
 
 
@@ -148,7 +160,12 @@ def _make_correspondence_fns(cfg: RegistrationConfig):
     (target index, found) per source point, or (voxel slot, hit) per source
     point and neighbour cell for the voxel heads; ``evaluate`` turns that
     state and the current transform into residuals. Splitting them lets the
-    GN loop reuse correspondences across iterations (cfg.nn_reuse)."""
+    GN loop reuse correspondences across iterations (cfg.nn_reuse).
+
+    Both take a batch of problems as well: (B,4,4) transforms with models
+    whose tensors are stacked per problem (parallel/multibag.py:_stack);
+    every gather then reads each problem's own rows (ops/voxel.py:batch_take)
+    and every output gains a leading B."""
     head = cfg.head
     max_d2 = cfg.max_correspondence_distance**2
     nn_offsets = _neighbor_offsets(cfg.nn_voxel_cells)
@@ -173,40 +190,47 @@ def _make_correspondence_fns(cfg: RegistrationConfig):
         return j.to(torch.int64), torch.isfinite(d2)
 
     def evaluate(T, st, src: SourceModel, tgt: TargetModel):
-        R = T[:3, :3]
+        batched = T.ndim == 3
+        R = T[..., :3, :3]
+        Rt = R.transpose(-1, -2)
+        if batched:
+            R, Rt = R[:, None], Rt[:, None]
         p = _transform(src.points, T)
         if head in ("vgicp", "ndt"):
-            return _evaluate_voxels(R, p, st, src, tgt)
+            return _evaluate_voxels(R, Rt, p, st, src, tgt, batched)
         j, ok = st
-        r = p - tgt.points[j]
+        r = p - batch_take(tgt.points, j, batched)
         d2 = (r * r).sum(-1)
         valid = ok & src.mask & (d2 < max_d2)
         if head == "icp":
             M = torch.eye(3, dtype=p.dtype, device=p.device).expand(r.shape + (3,))
         else:
-            Ca = R @ src.covs @ R.T
-            M = inv3x3(tgt.covs[j] + Ca)
+            Ca = R @ src.covs @ Rt
+            M = inv3x3(batch_take(tgt.covs, j, batched) + Ca)
         return p, r, M, valid
 
-    def _evaluate_voxels(R, p, st, src: SourceModel, tgt: TargetModel):
+    def _evaluate_voxels(R, Rt, p, st, src: SourceModel, tgt: TargetModel,
+                         batched):
         """K = N x offsets residuals: each source point against the mean of
         every hit voxel of its neighbourhood (row k*m + o: point k, offset o)."""
         slot, hit = st
-        m = slot.shape[1]
-        slot_f = slot.reshape(-1)
-        p_rep = p.repeat_interleave(m, dim=0)
-        r = p_rep - tgt.vh.means[slot_f]
+        m = slot.shape[-1]
+        slot_f = slot.reshape(slot.shape[:-2] + (-1,))
+        rows = slot.ndim - 2            # the point axis
+        p_rep = p.repeat_interleave(m, dim=rows)
+        r = p_rep - batch_take(tgt.vh.means, slot_f, batched)
         d2 = (r * r).sum(-1)
-        valid = hit.reshape(-1) & (d2 < max_d2)
+        valid = hit.reshape(slot_f.shape) & (d2 < max_d2)
         if head == "ndt":
-            M = tgt.voxel_inv_covs[slot_f]
+            M = batch_take(tgt.voxel_inv_covs, slot_f, batched)
             # Magnusson's exponential score: the IRLS weight saturates far
             # pulls (the same fixed points as PCL NDT's -d1 exp(-d2/2 e2))
-            e2 = torch.einsum("na,nab,nb->n", r, M, r)
-            M = M * torch.exp(-0.5 * gauss_d2 * e2)[:, None, None]
+            e2 = torch.einsum("...na,...nab,...nb->...n", r, M, r)
+            M = M * torch.exp(-0.5 * gauss_d2 * e2)[..., None, None]
         else:
-            Ca = R @ src.covs @ R.T
-            M = inv3x3(tgt.voxel_covs[slot_f] + Ca.repeat_interleave(m, dim=0))
+            Ca = R @ src.covs @ Rt
+            M = inv3x3(batch_take(tgt.voxel_covs, slot_f, batched)
+                       + Ca.repeat_interleave(m, dim=rows))
         return p_rep, r, M, valid
 
     return find, evaluate
@@ -252,6 +276,68 @@ def _make_align_fn(cfg: RegistrationConfig):
             num_correspondences=ncorr,
             mean_error=(w * (r * Mr).sum(-1)).sum() / cnt,
             fitness=(w * (r * r).sum(-1)).sum() / cnt,
+        )
+
+    return align
+
+
+def _make_batched_align_fn(cfg: RegistrationConfig):
+    """B alignments in lockstep: the counterpart of the JAX package's
+    ``jax.vmap(_make_align_fn(cfg))``.
+
+    Takes a SourceModel and a TargetModel whose tensors are stacked per
+    problem (parallel/multibag.py:_stack) and (B,4,4) guesses. Every GN
+    iteration is one launch sequence for all B problems; a problem whose
+    step fell below the threshold keeps its transform and iteration count
+    from then on (vmap of the reference's while_loop freezes it the same
+    way), and the loop ends when every problem is done or at
+    maximum_iterations. Returns a RegistrationResult with a leading B on
+    every field.
+    """
+    find, evaluate = _make_correspondence_fns(cfg)
+    eps2 = cfg.transformation_epsilon**2
+    lam = cfg.lm_lambda
+    reuse = max(int(cfg.nn_reuse), 1)
+
+    def align(src: SourceModel, tgt: TargetModel, guesses) -> RegistrationResult:
+        T = torch.as_tensor(guesses, dtype=src.points.dtype, device=src.points.device)
+        B = T.shape[0]
+        eye6 = torch.eye(6, dtype=T.dtype, device=T.device)
+        st = find(T, src, tgt)
+        done = torch.zeros(B, dtype=torch.bool, device=T.device)
+        iters = torch.zeros(B, dtype=torch.int64, device=T.device)
+        it = 0
+        while it < cfg.maximum_iterations:
+            live = ~done
+            p, r, M, valid = evaluate(T, st, src, tgt)
+            H, b, _ = _normal_equations(p, r, M, valid)
+            H = (H + lam * torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1))
+                 + 1e-9 * eye6)
+            delta = -torch.linalg.solve_ex(H, b).result
+            delta = torch.where(torch.isfinite(delta).all(-1, keepdim=True), delta, 0.0)
+            T = torch.where(live[:, None, None], se3_exp(delta) @ T, T)
+            done = done | (live & ((delta * delta).sum(-1) < eps2))
+            iters = iters + live.to(torch.int64)
+            it += 1
+            # the one host read of each GN iteration: the (B,) done vector
+            if all(done.tolist()) or it >= cfg.maximum_iterations:
+                break
+            if it % reuse == 0:
+                st = find(T, src, tgt)
+        # final stats at the solutions (fresh correspondences)
+        st = find(T, src, tgt)
+        p, r, M, valid = evaluate(T, st, src, tgt)
+        w = valid.to(p.dtype)
+        ncorr = valid.sum(-1)
+        cnt = torch.clamp(ncorr.to(p.dtype), min=1.0)
+        Mr = (M @ r[..., None])[..., 0]
+        return RegistrationResult(
+            transformation=T,
+            converged=done,
+            iterations=iters,
+            num_correspondences=ncorr,
+            mean_error=(w * (r * Mr).sum(-1)).sum(-1) / cnt,
+            fitness=(w * (r * r).sum(-1)).sum(-1) / cnt,
         )
 
     return align

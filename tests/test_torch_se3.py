@@ -634,7 +634,9 @@ def test_optimize_se3_matches_reference_dense():
 
 def test_optimize_se3_min_edges_skip_and_dtype():
     """A graph under min_edges is skipped (iterations -1, state returned as
-    it came), and a float32 graph gets float32 state back."""
+    it came), and a float32 graph gets float32 state back; chain_segments
+    changes nothing on SE3 (the JAX package ignores it there too:
+    tests/test_torch_se3_segments.py)."""
     b = p_g.SE3GraphBuilder(device="cpu")
     b.add_se3_node(np.eye(4), fixed=True)
     b.add_se3_node(np.eye(4))
@@ -643,8 +645,10 @@ def test_optimize_se3_min_edges_skip_and_dtype():
     (poses, planes, points), st = optimize_se3(g, config=SolverConfig(backend="chain"))
     assert st.iterations == -1 and poses.dtype == torch.float32
     assert torch.equal(poses, g.poses) and torch.equal(planes, g.planes)
-    with pytest.raises(NotImplementedError, match="SPIKE"):
-        optimize_se3(g, config=SolverConfig(backend="chain", chain_segments=4))
+    (poses4, planes4, _), st4 = optimize_se3(
+        g, config=SolverConfig(backend="chain", chain_segments=4))
+    assert st4.iterations == -1 and torch.equal(poses4, g.poses)
+    assert torch.equal(planes4, g.planes)
 
 
 # ------------------------------------------------------------- (g) g2o io
