@@ -34,8 +34,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
      delta preset without buildings (GPS every frame, loop closure on):
      needs a loop edge validated through the nn1 kernel, finite chi2 on
      every cycle and ATE <= 1.0 m; the same drive with loop closure off
-     is printed beside it;
-  8. buildings: the delta preset with OSM buildings on (RANSAC lines,
+     is printed beside it; both drives are held to the JAX package's own
+     drives of the same frames (REFERENCE_FILE, written on the CPU by
+     scripts/reference_drives.py): keyframe stamps and the counts of loop
+     edges and building vertices equal, |ATE - ATE of the reference| <=
+     5 mm, every keyframe within 2 cm and 1e-3 rad; each prints its largest
+     keyframe position and yaw gaps with their keyframes, the first frame
+     whose odometry parts by more than 1 mm, and both ATEs;
+  8. buildings: first the reference's random stream on the card
+     (utils/prng.py): one keyframe's line draws and one floor draw bitwise
+     equal to the CPU's, timed, their CUDA kernels counted; then the delta
+     preset with OSM buildings on (RANSAC lines,
      align_global per keyframe, keyframe<->building edges, global priors,
      the de-overlap loop, save_map), 10 warm-up frames then 240 timed
      raycast frames of bench.py's city drive (GPS 0.5 m noise, 0.15 m/frame
@@ -46,7 +55,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      files; the drive again on the same frames, whose keyframe poses,
      odometry, estimated_odom, chi2 per cycle and ATE must be bitwise
      equal to the first; the same frames without buildings are printed
-     beside it;
+     beside it; the first drive and the no-buildings drive are held to the
+     reference's as in phase 7;
   9. SE3 graph solve: the 4096-node hdl graph of bench.py (two laps, Huber
      loops every 100 nodes, one floor-plane hub with an se3plane edge every
      4th keyframe, one xyz prior), solved by optimize_se3 (chain backend:
@@ -61,7 +71,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      odometry edges = keyframes - 1 (+ the anchor edge), ATE <= 1.0 m,
      finite poses, nn1 launched, map.pcd written, graph.g2o read back with
      the same vertex and edge counts; whether the two drives' keyframe
-     poses and chi2 are bitwise equal is printed and recorded; then 60
+     poses and chi2 are bitwise equal is printed and recorded; the first
+     drive is held to the reference's as in phase 7; then 60
      frames through hdl_imu with identity orientation and gravity-only
      acceleration: quat and vec edges >= keyframes - 1;
  11. registration heads: phase 4's 40 frames with the odometry
@@ -118,7 +129,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      held to its own B = 1 drive (1e-3 m, 1e-4 rotation), aggregate
      scans/s and CUDA kernels per GN iteration at both B; the batched nn1
      kernel at the brute drive's shape against its plain version and
-     against B single launches (bitwise), timed both ways.
+     against B single launches (bitwise), timed both ways and beside B
+     back-to-back torch.cdist(q, t).min(1) calls.
 Phase 5 also runs a deskewed variant (deskewing on, a constant angular
 velocity fed through on_imu), card against CPU.
 The line before the last is the kernel report, the last line the result.
@@ -758,16 +770,6 @@ def graph_solve(report):
 
 # ------------------------------------------------------------ backend drive
 
-def count_loop_edges(backend):
-    """SE2 edges between non-consecutive keyframe vertices."""
-    nodes = [k.node_id for k in backend.keyframes]
-    consecutive = {frozenset(p) for p in zip(nodes[1:], nodes[:-1])}
-    kf = set(nodes)
-    return sum(1 for e in backend.graph.edges
-               if e["type"] == "se2" and e["i"] in kf and e["j"] in kf
-               and frozenset((e["i"], e["j"])) not in consecutive)
-
-
 def backend_drive(frames, gts, loops_on=True):
     """One lap through the delta preset without buildings; returns
     (pipeline, non-empty per-cycle stats, nn1 launches of the loop
@@ -783,6 +785,7 @@ def backend_drive(frames, gts, loops_on=True):
         over["distance_thresh"] = 0.0          # odometry only (bench.py:209)
     cfg = dataclasses.replace(cfg, delta=dataclasses.replace(cfg.delta, **over))
     pipe = make_pipeline(cfg)
+    trace_drive(pipe)
     cycles, loop_launches = [], [0]
     step, matching = pipe.backend.optimization_step, pipe.backend.loop_detector.matching
 
@@ -807,7 +810,7 @@ def backend_drive(frames, gts, loops_on=True):
     return pipe, [c for c in cycles if c], loop_launches[0], wall
 
 
-def run_backend(report, frames):
+def run_backend(report, frames, reference):
     from delta_graph_slam_tpu_torch.ops import nn_kernel
 
     gts = rel_gt(frames)
@@ -816,7 +819,7 @@ def run_backend(report, frames):
     launches = nn_kernel.launches
     be = pipe.backend
     m = pipe.evaluate()
-    loops = count_loop_edges(be)
+    loops = len(loop_edge_pairs(be))
     t = pipe.timing_summary()
 
     def ms(k):
@@ -839,7 +842,9 @@ def run_backend(report, frames):
     pipe_o, _, _, _ = backend_drive(frames, gts, loops_on=False)
     m_odo = pipe_o.evaluate()
     print(f"odometry only (distance_thresh 0): ATE {m_odo['ATE_mean']:.4f} m, "
-          f"loop edges {count_loop_edges(pipe_o.backend)}", flush=True)
+          f"loop edges {len(loop_edge_pairs(pipe_o.backend))}", flush=True)
+    misses = (held_to_reference("lap", pipe, reference, report)
+              + held_to_reference("lap_no_loops", pipe_o, reference, report))
     report["backend"] = {
         "frames": len(frames), "wall_s": wall, "frames_per_s": len(frames) / wall,
         "keyframes": len(be.keyframes), "loop_edges": loops, "cycles": cycles,
@@ -851,6 +856,7 @@ def run_backend(report, frames):
     check(cycles and all(np.isfinite(c) for c in chi2s),
           f"chi2_level0 not finite on every cycle: {chi2s}")
     check(m["ATE_mean"] <= 1.0, f"ATE {m['ATE_mean']} m > 1.0 m")
+    check(not misses, f"the laps against the reference: {misses}")
     return launches
 
 
@@ -929,6 +935,8 @@ def city_drive(world, frames, gts, buildings=True, threaded=False):
     pipe = Pipeline(cfg, building_provider=StaticProvider(
         world.osm_xml() if buildings else EMPTY_OSM), device="cuda", threaded=threaded)
     cycles, odo = recorded(pipe)
+    if not threaded:     # the trace reads the graph between update steps
+        trace_drive(pipe)
 
     def feed(fr, gt):
         pipe.on_gps(fr.stamp, *fr.gps)
@@ -958,6 +966,187 @@ def drive_record(backend, field):
             for k in backend.keyframes]
 
 
+# ------------------------------------------- the reference's own trajectories
+# tests/data/reference_drives.npz holds the JAX package's drives of phases 7,
+# 8 and 10 on the CPU (scripts/reference_drives.py). The helpers below read
+# either package's pipeline with numpy only, so the script records the
+# reference with them and this run holds the card's drives to that record.
+
+REFERENCE_FILE = "tests/data/reference_drives.npz"
+REFERENCE_DRIVES = ("lap", "lap_no_loops", "city", "city_no_buildings", "hdl_400")
+REF_POSITION_M = 0.02     # every keyframe position
+REF_YAW_RAD = 1e-3        # every keyframe yaw
+REF_ATE_M = 0.005         # |ATE - ATE of the reference|
+ODOM_PART_M = 1e-3        # the first frame whose odometry parts by more
+
+
+def pose_table(backend):
+    """(V, 3) SE2 pose of every graph vertex, of the delta or the hdl
+    backend of either package."""
+    return np.asarray(backend.poses2d if hasattr(backend, "poses2d") else backend.poses,
+                      np.float64).reshape(-1, 3)
+
+
+def graph_keyframes(backend):
+    return [k for k in backend.keyframes if k.node_id is not None]
+
+
+def loop_edge_pairs(backend):
+    """(i, j) of every SE2 / SE3 edge between non-consecutive keyframes."""
+    nodes = [k.node_id for k in graph_keyframes(backend)]
+    consecutive = {frozenset(p) for p in zip(nodes[1:], nodes[:-1])}
+    kf = set(nodes)
+    return [(e["i"], e["j"]) for e in backend.graph.edges
+            if e["type"] in ("se2", "se3") and e["i"] in kf and e["j"] in kf
+            and frozenset((e["i"], e["j"])) not in consecutive]
+
+
+def building_vertices(backend):
+    mgr = getattr(backend, "buildings_manager", None)
+    return mgr.get_building_nodes() if mgr is not None else []
+
+
+def trace_drive(pipe):
+    """Records, into ``pipe.drive_trace``, the odometry pose of every frame
+    and, after every update step that ran, the frames fed so far, the
+    keyframe poses and the step's stats."""
+    tr = pipe.drive_trace = {"odom": [], "cycles": [], "poses": [], "frames": [],
+                             "buildings": []}
+    step, matching = pipe.backend.optimization_step, pipe.odometry.matching
+
+    def traced_step():
+        out = step()
+        if out:
+            be = pipe.backend
+            table = pose_table(be)
+            tr["cycles"].append(dict(out))
+            tr["poses"].append(table[[k.node_id for k in graph_keyframes(be)]])
+            tr["frames"].append(len(tr["odom"]))
+            tr["buildings"].append(table[[b.node_id for b in building_vertices(be)]])
+        return out
+
+    def traced_matching(*a, **kw):
+        frame = matching(*a, **kw)
+        tr["odom"].append(np.asarray(frame.pose, np.float64))
+        return frame
+
+    pipe.backend.optimization_step = traced_step
+    pipe.odometry.matching = traced_matching
+
+
+def drive_arrays(pipe):
+    """A traced drive (after finish()) as the arrays of one drive of
+    REFERENCE_FILE."""
+    be, tr = pipe.backend, pipe.drive_trace
+    table = pose_table(be)
+    kfs = graph_keyframes(be)
+    bnodes = building_vertices(be)
+    m = pipe.evaluate()
+    nan = float("nan")
+    cycles = tr["cycles"]
+    return {
+        "kf_stamps": np.array([k.stamp for k in kfs], np.float64),
+        "kf_poses": table[[k.node_id for k in kfs]].reshape(-1, 3),
+        "cycle_frames": np.array(tr["frames"], np.int64),
+        "cycle_keyframes": np.array([len(p) for p in tr["poses"]], np.int64),
+        "cycle_poses": np.concatenate(tr["poses"] or [np.zeros((0, 3))]),
+        "cycle_buildings": np.array([len(p) for p in tr["buildings"]], np.int64),
+        "cycle_building_poses": np.concatenate(tr["buildings"] or [np.zeros((0, 3))]),
+        "chi2": np.array([[c.get("chi2_level0", c.get("chi2", nan)),
+                           c.get("chi2_level1", nan)] for c in cycles],
+                         np.float64).reshape(-1, 2),
+        "lm_iters": np.array([c.get("lm_iters", -1) for c in cycles], np.int64),
+        "odom": np.stack(tr["odom"]).astype(np.float64),
+        "loop_edges": np.array(loop_edge_pairs(be), np.int64).reshape(-1, 2),
+        "building_ids": np.array([str(b.id) for b in bnodes], dtype=np.str_),
+        "building_nodes": np.array([b.node_id for b in bnodes], np.int64),
+        "building_poses": table[[b.node_id for b in bnodes]].reshape(-1, 3),
+        "metrics": np.array([m["ATE_mean"], m["t_RPE_mean"], m["r_RPE_mean"]],
+                            np.float64),
+    }
+
+
+def load_reference(path=None):
+    """{drive: {field: array}} and the file's meta fields."""
+    path = Path(path or Path(__file__).resolve().parent / REFERENCE_FILE)
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    drives = {d: {k.split(".", 1)[1]: v for k, v in flat.items() if k.startswith(d + ".")}
+              for d in REFERENCE_DRIVES}
+    meta = {k.split(".", 1)[1]: v for k, v in flat.items() if k.startswith("meta.")}
+    return drives, meta
+
+
+def _wrap_angle(a):
+    return (a + np.pi) % (2 * np.pi) - np.pi
+
+
+def compare_drive(got, want):
+    """``got`` against ``want`` (drive_arrays of two drives of the same
+    frames): keyframe stamps and poses after finish(), loop edges,
+    building vertices and their poses, the odometry of every frame, ATE."""
+    out = {"stamps_equal": bool(np.array_equal(got["kf_stamps"], want["kf_stamps"])),
+           "keyframes": (len(got["kf_stamps"]), len(want["kf_stamps"])),
+           "loop_edges": (len(got["loop_edges"]), len(want["loop_edges"])),
+           "building_vertices": (len(got["building_nodes"]), len(want["building_nodes"]))}
+    if out["stamps_equal"] and len(got["kf_poses"]):
+        g, w = got["kf_poses"], want["kf_poses"]
+        dp = np.linalg.norm(g[:, :2] - w[:, :2], axis=1)
+        dy = np.abs(_wrap_angle(g[:, 2] - w[:, 2]))
+        out.update(position_gap=float(dp.max()), position_gap_kf=int(dp.argmax()),
+                   yaw_gap=float(dy.max()), yaw_gap_kf=int(dy.argmax()))
+    nf = min(len(got["odom"]), len(want["odom"]))
+    dt = np.linalg.norm(got["odom"][:nf, :3, 3] - want["odom"][:nf, :3, 3], axis=1)
+    parted = np.flatnonzero(dt > ODOM_PART_M)
+    out.update(odom_frames=nf, odom_gap=float(dt.max()) if nf else 0.0,
+               odom_parts_at=int(parted[0]) if len(parted) else None)
+    if len(want["building_nodes"]) and np.array_equal(got["building_ids"],
+                                                      want["building_ids"]):
+        out["building_gap"] = float(np.linalg.norm(
+            got["building_poses"][:, :2] - want["building_poses"][:, :2], axis=1).max())
+    out["ate"] = (float(got["metrics"][0]), float(want["metrics"][0]))
+    return out
+
+
+def reference_failures(c):
+    """What of compare_drive's result misses this run's parity bounds."""
+    bad = []
+    if not c["stamps_equal"]:
+        bad.append(f"keyframe stamps differ ({c['keyframes'][0]} against "
+                   f"{c['keyframes'][1]} keyframes)")
+    if c["loop_edges"][0] != c["loop_edges"][1]:
+        bad.append(f"loop edges {c['loop_edges'][0]} against {c['loop_edges'][1]}")
+    if c["building_vertices"][0] != c["building_vertices"][1]:
+        bad.append(f"building vertices {c['building_vertices'][0]} against "
+                   f"{c['building_vertices'][1]}")
+    if abs(c["ate"][0] - c["ate"][1]) > REF_ATE_M:
+        bad.append(f"ATE {c['ate'][0]:.6f} m against {c['ate'][1]:.6f} m")
+    if c.get("position_gap", 0.0) > REF_POSITION_M:
+        bad.append(f"keyframe {c['position_gap_kf']} {c['position_gap']:.4f} m off")
+    if c.get("yaw_gap", 0.0) > REF_YAW_RAD:
+        bad.append(f"keyframe {c['yaw_gap_kf']} yaw {c['yaw_gap']:.2e} rad off")
+    return bad
+
+
+def held_to_reference(name, pipe, reference, report):
+    """Prints the drive ``name`` against the reference's record of the same
+    frames and returns what misses the bounds."""
+    c = compare_drive(drive_arrays(pipe), reference[name])
+    gap = (f"largest keyframe position gap {c['position_gap']:.6f} m at keyframe "
+           f"{c['position_gap_kf']}, yaw gap {c['yaw_gap']:.3e} rad at keyframe "
+           f"{c['yaw_gap_kf']}" if "position_gap" in c else "keyframes not comparable")
+    parts = ("no frame's odometry parts by more than 1 mm" if c["odom_parts_at"] is None
+             else f"odometry parts by more than 1 mm at frame {c['odom_parts_at']}")
+    print(f"{name} against the reference: {gap}; {parts} (largest "
+          f"{c['odom_gap']:.3e} m over {c['odom_frames']} frames); ATE "
+          f"{c['ate'][0]:.6f} m, reference {c['ate'][1]:.6f} m; keyframes "
+          f"{c['keyframes']}, loop edges {c['loop_edges']}, building vertices "
+          f"{c['building_vertices']}", flush=True)
+    bad = reference_failures(c)
+    report.setdefault("reference", {})[name] = c | {"misses": bad}
+    return [f"{name}: {b}" for b in bad]
+
+
 def city_frames():
     """bench.py:45-60's city drive: (world, frames, ground truth re-anchored
     at the first frame as bench.py:80-95)."""
@@ -971,7 +1160,45 @@ def city_frames():
     return world, frames, rel_gt(frames)
 
 
-def run_buildings(report, world, frames, gts):
+def threefry_draws(report):
+    """The reference's random stream on the card (utils/prng.py): one
+    keyframe's line draws (the chain's key split, the sub-key split per
+    line, (n_hypotheses, 2) uniforms a line) and one frame's floor draw of
+    hdl_400, bitwise against the CPU over 3 draws, then timed (CUDA events)
+    with their CUDA kernels counted by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from delta_graph_slam_tpu_torch.config import get_preset
+    from delta_graph_slam_tpu_torch.utils.prng import KeyChain, split, uniform
+
+    sm = get_preset("delta").delta.scanmatcher
+    n_floor = get_preset("hdl_400").floor.n_hypotheses
+    draws = {
+        "lines": (7, lambda key: uniform(split(key, sm.max_lines), (sm.n_hypotheses, 2))),
+        "floor": (42, lambda key: uniform(key, (n_floor, 3))),
+    }
+    out = {}
+    for name, (seed, draw) in draws.items():
+        card, host = KeyChain(seed, "cuda"), KeyChain(seed, "cpu")
+        same = all(torch.equal(draw(card.next()).cpu(), draw(host.next()))
+                   for _ in range(3))
+        ms = cuda_ms(lambda: draw(card.next()))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            draw(card.next())
+            torch.cuda.synchronize()
+        kernels = sum(e.count for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+        out[name] = {"ms": ms, "kernels": kernels, "bitwise_cpu": same}
+        print(f"threefry, one {name} draw: {ms:.4f} ms, {kernels} CUDA kernels, "
+              f"bitwise equal to the CPU {same}", flush=True)
+        check(same, f"the {name} draw on the card differs from the CPU's")
+    out["power_limit"] = smi("power.limit")
+    report["threefry"] = out
+
+
+def run_buildings(report, world, frames, gts, reference):
     import tempfile
 
     from delta_graph_slam_tpu_torch.io.pcd import load_pcd
@@ -1027,6 +1254,8 @@ def run_buildings(report, world, frames, gts):
 
     pipe_n, _, wall_n, _, _ = city_drive(world, frames, gts, buildings=False)
     m_n = pipe_n.evaluate()
+    misses = (held_to_reference("city", pipe, reference, report)
+              + held_to_reference("city_no_buildings", pipe_n, reference, report))
     print("ATE {ATE_mean:.4f} m (std {ATE_std:.4f}), t-RPE {t_RPE_mean:.4f} m, "
           "r-RPE {r_RPE_mean:.5f} rad".format(**m)
           + f"; no_buildings ATE {m_n['ATE_mean']:.4f} m "
@@ -1054,6 +1283,7 @@ def run_buildings(report, world, frames, gts):
     check(m["ATE_mean"] <= 1.0, f"ATE {m['ATE_mean']} m > 1.0 m")
     check(saved and all(n > 0 for n in pcd.values()), f"save_map wrote {pcd}")
     check(all(same.values()), f"two drives of the same frames differ: {same}")
+    check(not misses, f"the city drives against the reference: {misses}")
     return launches, serial_record(pipe, wall, wall_finish, odo)
 
 
@@ -1536,6 +1766,8 @@ def hdl_drive(cfg, frames, gts, warmup, imu=False, device="cuda", threaded=False
         cfg = get_preset(cfg)
     pipe = Pipeline(cfg, device=device, threaded=threaded)
     cycles, odo = recorded(pipe)
+    if not threaded:     # the trace reads the graph between update steps
+        trace_drive(pipe)
     if watch is not None:
         watch(pipe)
     floors, floor_cb = [0], pipe.backend.floor_coeffs_callback
@@ -1565,7 +1797,7 @@ def edge_counts(builder):
     return out
 
 
-def run_hdl(report, frames, gts, device="cuda"):
+def run_hdl(report, frames, gts, reference, device="cuda"):
     import tempfile
 
     import torch
@@ -1643,6 +1875,7 @@ def run_hdl(report, frames, gts, device="cuda"):
            else float("nan"))
     print(f"the hdl drive twice: bitwise equal {same}, largest pose gap {gap:.3e} "
           f"({n_timed / wall_2:.3f} frames/s the second time)", flush=True)
+    misses = held_to_reference("hdl_400", pipe, reference, report)
 
     nn_kernel.launches = 0
     pipe_i, cycles_i, _, wall_i, _, _ = hdl_drive("hdl_imu", frames[:IMU_FRAMES],
@@ -1688,6 +1921,7 @@ def run_hdl(report, frames, gts, device="cuda"):
           f"hdl_imu: edges {counts_i} for {n_kf_i} keyframes")
     check(n_kf_i >= 3 and finite_i, f"hdl_imu: {n_kf_i} keyframes, finite {finite_i}")
     check(launches_i > 0, "the hdl_imu drive launched no nn1 kernel")
+    check(not misses, f"the hdl_400 drive against the reference: {misses}")
     return launches + launches_i, serial_record(pipe, wall, wall_finish, odo_record)
 
 
@@ -2111,7 +2345,7 @@ def checkpoint_drive(report, world, frames, gts, work, device="cuda"):
     ate = report["buildings"]["metrics"]["ATE_mean"]
     print(f"resumed drive: {len(b2.keyframes)} keyframes, ATE {m['ATE_mean']:.4f} m against "
           f"the uninterrupted drive's {ate:.4f} m (phase 8; difference "
-          f"{m['ATE_mean'] - ate:+.4f} m: the RANSAC generators restart and the "
+          f"{m['ATE_mean'] - ate:+.4f} m: the RANSAC key chains restart and the "
           f"restored building manager downloads no new buildings, as in the reference); "
           f"map->odom equal to the lifted trans_odom2map", flush=True)
     report["checkpoint"] = {"resume_at": RESUME_AT, "save_ms": save_ms, "load_ms": load_ms,
@@ -2585,6 +2819,11 @@ def batched_nn1(report, clouds, device="cuda"):
     singles_ms = cuda_ms(lambda: [nn_kernel.nn_1_cuda(q[b], qm[b], t[b], tm[b])
                                   for b in range(MB_BAGS)], inner=10)
     plain_ms = cuda_ms(lambda: knn.nn_1_reference(q, qm, t, tm), reps=5, warmup=1)
+    # the yardstick: B back-to-back torch.cdist(q, t).min(1) calls, one a
+    # problem on its valid points (one (Nq, Nt) distance matrix at a time)
+    valid = [(q[b][qm[b]], t[b][tm[b]]) for b in range(MB_BAGS)]
+    library_ms = cuda_ms(lambda: [torch.cdist(a, c).min(dim=1) for a, c in valid],
+                         reps=5, warmup=1)
     pairs = int((qm.sum(1) * tm.sum(1)).sum())
     flop_ms = FLOP_PER_PAIR * pairs / FP32_FLOPS * 1e3
     byte_ms = (sum(x.numel() * x.element_size() for x in (q, qm, t, tm))
@@ -2595,13 +2834,14 @@ def batched_nn1(report, clouds, device="cuda"):
            "max_abs_err": err, "max_err_over_magnitude": rel,
            "index_agreement": agree, "singles_bitwise": bitwise,
            "ms": ms, "singles_ms": singles_ms, "plain_ms": plain_ms,
-           "bound_ms": max(flop_ms, byte_ms),
+           "library_ms": library_ms, "bound_ms": max(flop_ms, byte_ms),
            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
            "splits": splits, "q_tiles": q_tiles, "power_limit": smi("power.limit")}
     report["nn1_batched"] = rec
     print(f"nn1 batched, {MB_BAGS} x {q.shape[1]} x {t.shape[1]} ({pairs} valid pairs, "
           f"{splits} splits x {q_tiles} query tiles a problem): one launch {ms:.4f} ms, "
           f"{MB_BAGS} single launches {singles_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"{MB_BAGS} torch.cdist().min(1) calls {library_ms:.3f} ms, "
           f"bound {rec['bound_ms']:.4f} ms ({100 * rec['bound_ms'] / ms:.1f}% of it); "
           f"against the plain version max |d2 err| {err:.3g}, {rel:.3g} of |q|^2 + "
           f"|t|^2 (limit 1e-6), index "
@@ -2705,6 +2945,12 @@ def main():
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}", flush=True)
     report = {"nvidia_smi": smi_line, "kernel_cases": {}}
+    reference, ref_meta = load_reference(root / REFERENCE_FILE)
+    print("reference drives: JAX {} on the {}, x64 {}, partitionable threefry {}, "
+          "recorded in {:.0f} s by {}".format(
+              ref_meta["jax_version"], ref_meta["platform"], ref_meta["x64"],
+              ref_meta["threefry_partitionable"], float(ref_meta["seconds"]),
+              ref_meta["command"]), flush=True)
 
     from delta_graph_slam_tpu_torch.ops import nn_kernel
 
@@ -2743,12 +2989,13 @@ def main():
                                    gps_walk_std=0.15)
     print(f"generated {LAP_FRAMES} frames in {time.perf_counter() - t:.1f} s",
           flush=True)
-    launches += run_backend(report, lap)
+    launches += run_backend(report, lap, reference)
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
     t = phase(f"buildings: {CITY_FRAMES}-frame raycast city drive, delta preset")
+    threefry_draws(report)
     world, city, city_gts = city_frames()
-    n, serial_city = run_buildings(report, world, city, city_gts)
+    n, serial_city = run_buildings(report, world, city, city_gts, reference)
     launches += n
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
@@ -2758,7 +3005,7 @@ def main():
 
     t = phase(f"hdl drive: {CITY_FRAMES}-frame raycast city drive, hdl_400, then "
               f"{IMU_FRAMES} frames of hdl_imu")
-    n, serial_hdl = run_hdl(report, city, city_gts)
+    n, serial_hdl = run_hdl(report, city, city_gts, reference)
     launches += n
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
@@ -2795,7 +3042,7 @@ def main():
         **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "bound_share")},
         **{f"batched_{k}": batched[k] for k in ("ms", "singles_ms", "plain_ms",
-                                                "bound_ms", "shape")},
+                                                "library_ms", "bound_ms", "shape")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

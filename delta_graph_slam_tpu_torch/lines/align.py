@@ -28,6 +28,7 @@ from ..geom.se2 import se2_compose, se2_inverse
 from ..ops.cloud import MaskedCloud
 from ..ops.ransac import LineSegments, ransac_line
 from ..utils.device import DEFAULT_DEVICE, resolve_device
+from ..utils.prng import KeyChain, split, uniform
 from .features import (
     EdgeFeatures, _rotate, _unit, align_edges, align_lines_pair, apply_rt, edge_extraction,
     gather_lines, make_lines, rot2, transform_lines,
@@ -298,9 +299,10 @@ class LineBasedScanmatcher:
 
     ``sampler(max_lines, n_hypotheses)`` returns the RANSAC uniforms of one
     line extraction, a (max_lines, n_hypotheses, 2) tensor or array in
-    [0, 1). By default it reads a torch.Generator seeded with 7 on
-    ``device``; the JAX package draws from PRNGKey(7) instead, so the two
-    default streams differ.
+    [0, 1). By default it is the reference's own stream on ``device``
+    (utils/prng.py): key 7 split once per extraction, the sub-key split
+    once per line, (n_hypotheses, 2) uniforms from each line's key
+    (reference lines/align.py:418-434, ops/ransac.py:34, :260).
     """
 
     def __init__(self, cfg: LineScanmatcherConfig = LineScanmatcherConfig(),
@@ -308,12 +310,10 @@ class LineBasedScanmatcher:
         self.cfg = cfg
         self.device = resolve_device(device)
         if sampler is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(7)
+            chain = KeyChain(7, self.device)
 
             def sampler(n_lines, n_hypotheses):
-                return torch.rand((n_lines, n_hypotheses, 2), generator=gen,
-                                  device=self.device)
+                return uniform(split(chain.next(), n_lines), (n_hypotheses, 2))
         self.sampler = sampler
 
     # ---- feature extraction -------------------------------------------

@@ -26,6 +26,7 @@ from ..ops.cloud import MaskedCloud, compact, make_cloud, plane_clip
 from ..ops.normals import estimate_normals
 from ..ops.ransac import ransac_plane, refine_plane
 from ..utils.device import DEFAULT_DEVICE, resolve_device, strict_fp32_matmul
+from ..utils.prng import KeyChain, uniform
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,9 +102,10 @@ def detect_floor(cfg: FloorDetectionConfig, cloud: MaskedCloud, uniforms):
 
 class FloorDetectionStage:
     """``sampler(n_hypotheses)`` returns one frame's RANSAC uniforms
-    ``(n_hypotheses, 3)`` in [0, 1). By default it reads a torch.Generator
-    seeded with 42 on the stage's device, so a run repeats; a test passes the
-    JAX package's stream instead."""
+    ``(n_hypotheses, 3)`` in [0, 1). By default it is the reference's own
+    stream on the stage's device (utils/prng.py): key 42 split once per
+    ``detect``, (n_hypotheses, 3) uniforms from the sub-key (reference
+    models/floor_detection.py:143-150, ops/ransac.py:34, :49)."""
 
     def __init__(self, cfg: FloorDetectionConfig = FloorDetectionConfig(),
                  device=DEFAULT_DEVICE, sampler=None):
@@ -112,12 +114,10 @@ class FloorDetectionStage:
         self.cfg = cfg
         self.device = resolve_device(device)
         if sampler is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(42)
+            chain = KeyChain(42, self.device)
 
             def sampler(n_hypotheses):
-                return torch.rand((n_hypotheses, 3), generator=gen,
-                                  device=self.device)
+                return uniform(chain.next(), (n_hypotheses, 3))
 
         self.sampler = sampler
 

@@ -20,6 +20,9 @@ class MaskedCloud(NamedTuple):
     def capacity(self):
         return self.points.shape[0]
 
+    def count(self):
+        return self.mask.sum()
+
 
 def make_cloud(points, mask=None, capacity=None, device="cpu") -> MaskedCloud:
     """Build a MaskedCloud from a (possibly ragged) array, padded on the host

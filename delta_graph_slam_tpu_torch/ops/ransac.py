@@ -12,8 +12,9 @@ ported path calls.
 
 The samples come in as an argument: ``ransac_plane`` takes
 ``(n_hypotheses, 3)`` uniforms in [0, 1) and ``ransac_line``
-``(max_lines, n_hypotheses, 2)``, so any random stream (a torch.Generator,
-or the JAX package's threefry draws replayed in a test) drives them. Everything stays on the cloud's device:
+``(max_lines, n_hypotheses, 2)``, so any random stream drives them; the
+stages' default is the reference's threefry stream (utils/prng.py).
+Everything stays on the cloud's device:
 the ``max_lines`` iterations are masked and read nothing back to the host.
 """
 
@@ -42,6 +43,17 @@ class LineSegments(NamedTuple):
     max_error: torch.Tensor   # (..., L)
     min_error: torch.Tensor   # (..., L)
     mask: torch.Tensor        # (..., L) bool
+
+    @property
+    def capacity(self):
+        return self.a.shape[-2]
+
+    def lengths(self):
+        return torch.linalg.norm(self.b - self.a, dim=-1)
+
+    def directions(self):
+        d = self.b - self.a
+        return d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-12)
 
 
 def _sample_indices(u, count):

@@ -450,6 +450,13 @@ class Registration:
             raise RuntimeError("set_target() before align()")
         return self.align_pair(source, self._target, guess)
 
+    def align_cloud(self, cloud: MaskedCloud, guess=None) -> RegistrationResult:
+        """One scan registered against the prepared target: its source
+        model built and aligned (the reference jits the two as one program)."""
+        if self._target is None:
+            raise RuntimeError("set_target() before align_cloud()")
+        return self.align_pair(cloud, self._target, guess)
+
     def align_pair(self, source, target, guess=None) -> RegistrationResult:
         if isinstance(target, MaskedCloud):
             target = self.build_target(target)

@@ -60,14 +60,17 @@ def city_scan(n=4000, seed=0, sensor_height=1.8):
 
 class JaxFloorSampler:
     """The JAX floor stage's RANSAC stream as uniforms for the port
-    (models/floor_detection.py:143-150, ops/ransac.py:32-35, :49)."""
+    (models/floor_detection.py:143-150, ops/ransac.py:32-35, :49), in JAX's
+    default float dtype (float64 under this process's x64) or in ``dtype``."""
 
-    def __init__(self, seed=42):
+    def __init__(self, seed=42, dtype=None):
         self.key = jax.random.PRNGKey(seed)
+        self.dtype = dtype
 
     def __call__(self, n_hypotheses):
         self.key, sub = jax.random.split(self.key)
-        return np.array(jax.random.uniform(sub, (n_hypotheses, 3)))
+        kw = {} if self.dtype is None else {"dtype": self.dtype}
+        return np.array(jax.random.uniform(sub, (n_hypotheses, 3), **kw))
 
 
 # --------------------------------------------------- (h) plane clip, RANSAC

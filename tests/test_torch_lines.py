@@ -37,14 +37,18 @@ torch.set_num_threads(2)
 
 class JaxSampler:
     """The JAX package's RANSAC stream as uniforms for the port
-    (lines/align.py:418-434, ops/ransac.py:32-35, :260)."""
+    (lines/align.py:418-434, ops/ransac.py:32-35, :260), in JAX's default
+    float dtype (float64 here, where conftest.py turns x64 on, as the
+    reference draws in this process) or in ``dtype``."""
 
-    def __init__(self, seed=7):
+    def __init__(self, seed=7, dtype=None):
         self.key = jax.random.PRNGKey(seed)
+        self.dtype = dtype
 
     def __call__(self, n_lines, n_hypotheses):
         self.key, sub = jax.random.split(self.key)
-        return np.stack([np.asarray(jax.random.uniform(k, (n_hypotheses, 2)))
+        kw = {} if self.dtype is None else {"dtype": self.dtype}
+        return np.stack([np.asarray(jax.random.uniform(k, (n_hypotheses, 2), **kw))
                          for k in jax.random.split(sub, n_lines)])
 
 
@@ -78,6 +82,24 @@ def square(cx=0.0, cy=0.0, half=5.0):
 def both_lines(a, b, cap):
     """(reference, port) LineSegments of the same float32 endpoints."""
     return RL.make_lines(a, b, capacity=cap), PL.make_lines(a, b, capacity=cap)
+
+
+@pytest.mark.parametrize("degenerate", [False, True])
+def test_line_segments_capacity_lengths_directions_match_reference(degenerate):
+    """LineSegments.capacity, .lengths() and .directions() (reference
+    ops/ransac.py:220-229), a zero-length segment among them when
+    ``degenerate``."""
+    rng = np.random.default_rng(11)
+    a = rng.uniform(-30, 30, (9, 2)).astype(np.float32)
+    b = (a + rng.normal(0, 5, (9, 2))).astype(np.float32)
+    if degenerate:
+        b[4] = a[4]
+    r, p = both_lines(a, b, 12)
+    assert p.capacity == r.capacity == 12
+    # one float32 norm: within 1 ulp-scale of the length
+    np.testing.assert_allclose(p.lengths().numpy(), np.asarray(r.lengths()), rtol=1e-6)
+    np.testing.assert_allclose(p.directions().numpy(), np.asarray(r.directions()),
+                               rtol=1e-6, atol=1e-7)
 
 
 def np_(x):

@@ -181,6 +181,15 @@ def test_knn_radius_count_match_reference():
     np.testing.assert_array_equal(np_(c_p), np.asarray(c_r))  # counts: exact
 
 
+@pytest.mark.parametrize("mask_kind", ["all", "some", "none"])
+def test_masked_cloud_count_matches_reference(scan, mask_kind):
+    mask = {"all": np.ones(4000, bool), "none": np.zeros(4000, bool),
+            "some": np.random.default_rng(5).random(4000) < 0.3}[mask_kind]
+    rc, pc = both_clouds(scan[:4000], mask, capacity=4500)
+    assert pc.capacity == rc.capacity == 4500
+    assert int(pc.count()) == int(rc.count()) == int(mask.sum())
+
+
 def test_cloud_filters_match_reference(scan):
     rc, pc = both_clouds(scan[:5000], capacity=6000)
     T = np.eye(4, dtype=np.float32)

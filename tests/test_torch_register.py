@@ -110,6 +110,33 @@ def test_registration_matches_reference(filtered, nn_method):
     np.testing.assert_allclose(fit_p, fit_r, rtol=5e-3)
 
 
+def test_align_cloud_matches_reference(filtered):
+    """Registration.align_cloud (reference register/engine.py:426-432):
+    RuntimeError before set_target, then the source model built and aligned
+    in one call, as align() does with a MaskedCloud."""
+    (tp, tm), _ = filtered[0]
+    (sp, sm), _ = filtered[1]
+    results = []
+    for get_preset, reg_cls, cloud in (
+        (r_get_preset, RReg, lambda p, m: R_ops.make_cloud(p, m)),
+        (p_get_preset, PReg, lambda p, m: make_cloud(p, m)),
+    ):
+        reg = reg_cls(dataclasses.replace(_small(get_preset)[1], nn_method="voxel"),
+                      capacity_voxels=4096)
+        with pytest.raises(RuntimeError, match="set_target"):
+            reg.align_cloud(cloud(sp, sm))
+        reg.set_target(cloud(tp, tm))
+        res = reg.align_cloud(cloud(sp, sm))
+        results.append((np_(res.transformation).astype(np.float64),
+                        int(res.iterations), bool(res.converged)))
+    (T_r, it_r, conv_r), (T_p, it_p, conv_p) = results
+    assert conv_r and conv_p and it_p == it_r
+    # the bounds of test_registration_matches_reference: 1e-3 m, 1e-4 rad
+    np.testing.assert_allclose(T_p[:3, 3], T_r[:3, 3], atol=1e-3)
+    dR = T_p[:3, :3].T @ T_r[:3, :3]
+    assert np.linalg.norm(dR - dR.T) / (2 * np.sqrt(2)) < 1e-4
+
+
 def test_fitness_and_information_match_reference(filtered):
     (p1, m1), _ = filtered[0]
     (p2, m2), _ = filtered[1]
