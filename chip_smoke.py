@@ -23,7 +23,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      second run checks the odometry edges, the kernel launch count,
      convergence and drift; then the voxel sums of one scan (the run-wise
      segment_sum against the float index_add_ it replaced) timed, five
-     runs each, the segment sum unchanged over them;
+     runs each, the segment sum unchanged over them; the odometry is held
+     to the reference's drive of the same frames (``front``): every
+     frame's position within 2 cm and its rotation within 1e-3 rad, the
+     first frame that parts by more than 1 mm and the GN iteration counts
+     that differ printed;
   5. small input: the same pipeline at a small size on the card and through
      the plain CPU path, which must agree;
   6. graph solve: the 4096-node two-lap pose graph of bench.py, solved by
@@ -36,8 +40,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      every cycle and ATE <= 1.0 m; the same drive with loop closure off
      is printed beside it; both drives are held to the JAX package's own
      drives of the same frames (REFERENCE_FILE, written on the CPU by
-     scripts/reference_drives.py): keyframe stamps and the counts of loop
-     edges and building vertices equal, |ATE - ATE of the reference| <=
+     scripts/reference_drives.py): keyframe stamps, loop edges (vertex
+     pairs) and building vertices (ids) equal, |ATE - ATE of the reference| <=
      5 mm, every keyframe within 2 cm and 1e-3 rad; each prints its largest
      keyframe position and yaw gaps with their keyframes, the first frame
      whose odometry parts by more than 1 mm, and both ATEs;
@@ -74,7 +78,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      poses and chi2 are bitwise equal is printed and recorded; the first
      drive is held to the reference's as in phase 7; then 60
      frames through hdl_imu with identity orientation and gravity-only
-     acceleration: quat and vec edges >= keyframes - 1;
+     acceleration: quat and vec edges >= keyframes - 1, the drive held to
+     the reference's (``hdl_imu``) as in phase 7;
  11. registration heads: phase 4's 40 frames with the odometry
      registration set to REGISTRATION_PRESETS['hdl'] (NDT_OMP, resolution
      1.0, DIRECT7) and to FAST_VGICP at resolution 1.0, each twice: >= 90 %
@@ -82,9 +87,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the path for FAST_VGICP, while NDT_OMP's drift is printed and not held
      (on this drive the reference's NDT does not track frame to keyframe:
      tests/test_torch_voxel_heads.py); odometry ms and GN iterations a frame
-     beside FAST_GICP's from phase 4; then hdl_400 with HdlBackendConfig()'s
-     NDT_OMP backend registration over phase 7's lap: >= 1 loop candidate
-     aligned through NDT, candidates and loops accepted printed;
+     beside FAST_GICP's from phase 4; both held to the reference's drives
+     (``front_ndt_omp``, ``front_fast_vgicp``) as in phase 4; then hdl_400
+     with HdlBackendConfig()'s NDT_OMP backend registration over phase 7's
+     lap: >= 1 loop candidate aligned through NDT, candidates and loops
+     accepted printed, the drive held to the reference's
+     (``lap_ndt_loops``) as in phase 7;
  12. threaded runner: phase 8's building drive and phase 10's hdl_400
      drive through Pipeline(..., threaded=True): no worker error, finish()
      returns, keyframe stamps and the odometry of every frame bitwise equal
@@ -104,13 +112,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      drive cut after 130 frames: Pipeline.save_state, a fresh Pipeline,
      load_state (poses within 1e-6 m), the remaining 120 frames with a 10 Hz
      Map2OdomPublisher (map->odom equal to the lifted trans_odom2map, ATE
-     <= 1.0 m, printed beside phase 8's); radius_moments at 32768 x 32768
+     <= 1.0 m, printed beside phase 8's), both halves held to the
+     reference's drive of the same calls (``city_resumed``) as in phase 7,
+     building ids and loop edges equal; radius_moments at 32768 x 32768
      (phase 4's first scan, r 0.8 m, chunk 4096) on the card against the
      port's plain CPU run (counts equal away from r^2, means and
      covariances within 1e-5), then phase 4's frames with
      neighbor_method='dense' and cov_method='dense' twice (>= 90 %
-     converged, drift <= 5 % of the path, odometry bitwise equal), frames/s
-     and ms/frame beside phase 4's voxel drive.
+     converged, drift <= 5 % of the path, odometry bitwise equal, held to
+     the reference's ``front_dense`` as in phase 4), frames/s and ms/frame
+     beside phase 4's voxel drive.
  14. parallel/: the SE2 graph solve in three layouts (whole chain, the
      SPIKE core solve with 16 segments, and optimize_se2's automatic route,
      the locality-aware SPIKE solve) on phase 6's 4096-node graph (cold
@@ -126,7 +137,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      lockstep frames), then brute ones through the batched nn1 launch (8
      frames: a brute model's kNN covariances search the whole cloud in
      plain PyTorch): every bag of the B = 8 run
-     held to its own B = 1 drive (1e-3 m, 1e-4 rotation), aggregate
+     held to its own B = 1 drive (1e-3 m, 1e-4 rotation) and, with voxel
+     correspondences, every bag at every step to the reference's
+     (``multibag_voxel``) as in phase 4, aggregate
      scans/s and CUDA kernels per GN iteration at both B; the batched nn1
      kernel at the brute drive's shape against its plain version and
      against B single launches (bitwise), timed both ways and beside B
@@ -358,7 +371,7 @@ def drive(pipe, frames, gts=None, angular_velocity=None):
     return out
 
 
-def run_slice(report):
+def run_slice(report, reference):
     import torch
 
     from delta_graph_slam_tpu_torch.config import get_preset
@@ -428,6 +441,8 @@ def run_slice(report):
           f"nn1 launched {launches} times for {len(edges)} edges")
     check(converged >= 0.9, f"only {converged:.3f} of frames converged")
     check(drift <= 0.05 * path, f"drift {drift:.3f} m > 5% of {path:.3f} m")
+    misses = held_to_reference("front", front_arrays(odo), reference, report)
+    check(not misses, f"the front end against the reference: {misses}")
     return launches, frames
 
 
@@ -967,15 +982,18 @@ def drive_record(backend, field):
 
 
 # ------------------------------------------- the reference's own trajectories
-# tests/data/reference_drives.npz holds the JAX package's drives of phases 7,
-# 8 and 10 on the CPU (scripts/reference_drives.py). The helpers below read
-# either package's pipeline with numpy only, so the script records the
-# reference with them and this run holds the card's drives to that record.
+# tests/data/reference_drives.npz holds the JAX package's drives of phases 4,
+# 7, 8, 10, 11, 13 and 14 on the CPU (scripts/reference_drives.py). The
+# helpers below read either package's pipeline with numpy only, so the
+# script records the reference with them and this run holds the card's
+# drives to that record.
 
 REFERENCE_FILE = "tests/data/reference_drives.npz"
-REFERENCE_DRIVES = ("lap", "lap_no_loops", "city", "city_no_buildings", "hdl_400")
-REF_POSITION_M = 0.02     # every keyframe position
-REF_YAW_RAD = 1e-3        # every keyframe yaw
+REFERENCE_DRIVES = ("lap", "lap_no_loops", "city", "city_no_buildings", "hdl_400",
+                    "front", "front_ndt_omp", "front_fast_vgicp", "front_dense",
+                    "lap_ndt_loops", "hdl_imu", "city_resumed", "multibag_voxel")
+REF_POSITION_M = 0.02     # every keyframe (front-end drives: frame) position
+REF_YAW_RAD = 1e-3        # every keyframe yaw (front-end drives: rotation)
 REF_ATE_M = 0.005         # |ATE - ATE of the reference|
 ODOM_PART_M = 1e-3        # the first frame whose odometry parts by more
 
@@ -1034,6 +1052,15 @@ def trace_drive(pipe):
     pipe.odometry.matching = traced_matching
 
 
+def trace_resumed(pipe, trace):
+    """Traces ``pipe`` (trace_drive) on from ``trace``, the drive of the
+    pipeline that saved the checkpoint ``pipe`` loaded: its arrays then
+    cover both halves."""
+    trace_drive(pipe)
+    for k, v in trace.items():
+        pipe.drive_trace[k].extend(v)
+
+
 def drive_arrays(pipe):
     """A traced drive (after finish()) as the arrays of one drive of
     REFERENCE_FILE."""
@@ -1066,6 +1093,15 @@ def drive_arrays(pipe):
     }
 
 
+def front_arrays(odo):
+    """The odometry frames of a drive without a traced backend (phase 4's,
+    11's and 13's front ends) as the arrays of one drive of
+    REFERENCE_FILE: every frame's pose, GN iterations and convergence."""
+    return {"odom": np.stack([np.asarray(f.pose, np.float64) for f in odo]),
+            "iters": np.array([f.iterations for f in odo], np.int64),
+            "converged": np.array([f.converged for f in odo], bool)}
+
+
 def load_reference(path=None):
     """{drive: {field: array}} and the file's meta fields."""
     path = Path(path or Path(__file__).resolve().parent / REFERENCE_FILE)
@@ -1081,6 +1117,43 @@ def _wrap_angle(a):
     return (a + np.pi) % (2 * np.pi) - np.pi
 
 
+def rotation_angle(R):
+    """(...) rotation angles of (..., 3, 3) rotations, from the skew part
+    and the trace together (arccos of the trace alone reads a float32
+    rotation's departure from orthonormality, ~1e-7, as ~5e-4 rad)."""
+    s = np.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                  R[..., 1, 0] - R[..., 0, 1]], -1)
+    return np.arctan2(np.linalg.norm(s, axis=-1) / 2.0,
+                      (np.trace(R, axis1=-2, axis2=-1) - 1.0) / 2.0)
+
+
+def compare_odometry(got, want):
+    """``got`` against ``want`` (front_arrays of two drives of the same
+    frames, or multibag_voxel's (steps, bags) arrays): every pose's position
+    gap and the angle of its relative rotation, the largest of each with
+    its frame, the first frame whose position parts by more than
+    ODOM_PART_M, and the frames whose GN iteration counts differ (where
+    both hold them)."""
+    shape = want["odom"].shape[:-2]
+    out = {"frames": (got["odom"].shape[:-2], shape)}
+    if got["odom"].shape != want["odom"].shape:
+        return out
+    g, w = got["odom"].reshape(-1, 4, 4), want["odom"].reshape(-1, 4, 4)
+    dp = np.linalg.norm(g[:, :3, 3] - w[:, :3, 3], axis=1)
+    dr = rotation_angle(np.einsum("nji,njk->nik", g[:, :3, :3], w[:, :3, :3]))
+    parted = np.flatnonzero(dp > ODOM_PART_M)
+
+    def at(i):
+        return [int(k) for k in np.unravel_index(i, shape)]
+
+    out.update(position_gap=float(dp.max()), position_gap_at=at(dp.argmax()),
+               rotation_gap=float(dr.max()), rotation_gap_at=at(dr.argmax()),
+               parts_at=at(parted[0]) if len(parted) else None)
+    if "iters" in got and "iters" in want:
+        out["iterations_differ"] = int((got["iters"] != want["iters"]).sum())
+    return out
+
+
 def compare_drive(got, want):
     """``got`` against ``want`` (drive_arrays of two drives of the same
     frames): keyframe stamps and poses after finish(), loop edges,
@@ -1088,7 +1161,10 @@ def compare_drive(got, want):
     out = {"stamps_equal": bool(np.array_equal(got["kf_stamps"], want["kf_stamps"])),
            "keyframes": (len(got["kf_stamps"]), len(want["kf_stamps"])),
            "loop_edges": (len(got["loop_edges"]), len(want["loop_edges"])),
-           "building_vertices": (len(got["building_nodes"]), len(want["building_nodes"]))}
+           "loop_edges_equal": bool(np.array_equal(got["loop_edges"], want["loop_edges"])),
+           "building_vertices": (len(got["building_nodes"]), len(want["building_nodes"])),
+           "building_ids_equal": bool(np.array_equal(got["building_ids"],
+                                                     want["building_ids"]))}
     if out["stamps_equal"] and len(got["kf_poses"]):
         g, w = got["kf_poses"], want["kf_poses"]
         dp = np.linalg.norm(g[:, :2] - w[:, :2], axis=1)
@@ -1109,16 +1185,28 @@ def compare_drive(got, want):
 
 
 def reference_failures(c):
-    """What of compare_drive's result misses this run's parity bounds."""
+    """What of compare_drive's or compare_odometry's result misses this
+    run's parity bounds."""
+    if "stamps_equal" not in c:
+        if "position_gap" not in c:
+            return [f"poses of shape {c['frames'][0]} against {c['frames'][1]}"]
+        bad = []
+        if c["position_gap"] > REF_POSITION_M:
+            bad.append(f"frame {c['position_gap_at']} {c['position_gap']:.4f} m off")
+        if c["rotation_gap"] > REF_YAW_RAD:
+            bad.append(f"frame {c['rotation_gap_at']} rotation {c['rotation_gap']:.2e} "
+                       "rad off")
+        return bad
     bad = []
     if not c["stamps_equal"]:
         bad.append(f"keyframe stamps differ ({c['keyframes'][0]} against "
                    f"{c['keyframes'][1]} keyframes)")
-    if c["loop_edges"][0] != c["loop_edges"][1]:
-        bad.append(f"loop edges {c['loop_edges'][0]} against {c['loop_edges'][1]}")
-    if c["building_vertices"][0] != c["building_vertices"][1]:
-        bad.append(f"building vertices {c['building_vertices'][0]} against "
-                   f"{c['building_vertices'][1]}")
+    if not c["loop_edges_equal"]:
+        bad.append(f"loop edges differ ({c['loop_edges'][0]} against "
+                   f"{c['loop_edges'][1]})")
+    if not c["building_ids_equal"]:
+        bad.append(f"building vertices differ ({c['building_vertices'][0]} against "
+                   f"{c['building_vertices'][1]})")
     if abs(c["ate"][0] - c["ate"][1]) > REF_ATE_M:
         bad.append(f"ATE {c['ate'][0]:.6f} m against {c['ate'][1]:.6f} m")
     if c.get("position_gap", 0.0) > REF_POSITION_M:
@@ -1128,20 +1216,44 @@ def reference_failures(c):
     return bad
 
 
-def held_to_reference(name, pipe, reference, report):
-    """Prints the drive ``name`` against the reference's record of the same
-    frames and returns what misses the bounds."""
-    c = compare_drive(drive_arrays(pipe), reference[name])
+def odometry_summary(c):
+    """compare_odometry's result as one line."""
+    if "position_gap" not in c:
+        return f"poses of shape {c['frames'][0]} against {c['frames'][1]}"
+    parts = ("no pose parts by more than 1 mm" if c["parts_at"] is None
+             else f"the poses part by more than 1 mm at {c['parts_at']}")
+    return (f"largest position gap {c['position_gap']:.6f} m at {c['position_gap_at']}, "
+            f"rotation gap {c['rotation_gap']:.3e} rad at {c['rotation_gap_at']}; {parts}; "
+            f"GN iteration counts differ at {c.get('iterations_differ')} of "
+            f"{int(np.prod(c['frames'][1]))}")
+
+
+def drive_summary(c):
+    """compare_drive's result as one line."""
     gap = (f"largest keyframe position gap {c['position_gap']:.6f} m at keyframe "
            f"{c['position_gap_kf']}, yaw gap {c['yaw_gap']:.3e} rad at keyframe "
            f"{c['yaw_gap_kf']}" if "position_gap" in c else "keyframes not comparable")
     parts = ("no frame's odometry parts by more than 1 mm" if c["odom_parts_at"] is None
              else f"odometry parts by more than 1 mm at frame {c['odom_parts_at']}")
-    print(f"{name} against the reference: {gap}; {parts} (largest "
-          f"{c['odom_gap']:.3e} m over {c['odom_frames']} frames); ATE "
-          f"{c['ate'][0]:.6f} m, reference {c['ate'][1]:.6f} m; keyframes "
-          f"{c['keyframes']}, loop edges {c['loop_edges']}, building vertices "
-          f"{c['building_vertices']}", flush=True)
+    return (f"{gap}; {parts} (largest {c['odom_gap']:.3e} m over {c['odom_frames']} "
+            f"frames); ATE {c['ate'][0]:.6f} m, reference {c['ate'][1]:.6f} m; keyframes "
+            f"{c['keyframes']}, loop edges {c['loop_edges']}, building vertices "
+            f"{c['building_vertices']}")
+
+
+def held_to_reference(name, got, reference, report):
+    """Prints the drive ``name`` (a traced pipeline, or the arrays of a drive)
+    against the reference's record of the same frames and returns what
+    misses the bounds: compare_drive where the record has a backend,
+    compare_odometry where it holds odometry only."""
+    want = reference[name]
+    if "kf_stamps" in want:
+        c = compare_drive(got if isinstance(got, dict) else drive_arrays(got), want)
+        line = drive_summary(c)
+    else:
+        c = compare_odometry(got, want)
+        line = odometry_summary(c)
+    print(f"{name} against the reference: {line}", flush=True)
     bad = reference_failures(c)
     report.setdefault("reference", {})[name] = c | {"misses": bad}
     return [f"{name}: {b}" for b in bad]
@@ -1921,7 +2033,8 @@ def run_hdl(report, frames, gts, reference, device="cuda"):
           f"hdl_imu: edges {counts_i} for {n_kf_i} keyframes")
     check(n_kf_i >= 3 and finite_i, f"hdl_imu: {n_kf_i} keyframes, finite {finite_i}")
     check(launches_i > 0, "the hdl_imu drive launched no nn1 kernel")
-    check(not misses, f"the hdl_400 drive against the reference: {misses}")
+    misses += held_to_reference("hdl_imu", pipe_i, reference, report)
+    check(not misses, f"the hdl_400 and hdl_imu drives against the reference: {misses}")
     return launches + launches_i, serial_record(pipe, wall, wall_finish, odo_record)
 
 
@@ -1955,7 +2068,7 @@ def odometry_quality(odo, gts):
             float(np.mean([f.iterations for f in odo[1:]])))
 
 
-def run_heads(report, frames, lap):
+def run_heads(report, frames, lap, reference):
     """Phase 11: the NDT and VGICP heads on phase 4's frames, then the
     nodelet-default NDT backend registration validating loops on phase 7's
     lap."""
@@ -1975,10 +2088,12 @@ def run_heads(report, frames, lap):
                                   rows["FAST_GICP"]["gn_iterations_per_frame"],
                                   gicp["drift_m"]), flush=True)
     launches = 0
-    heads = (("NDT_OMP", REGISTRATION_PRESETS["hdl"], False),
+    heads = (("NDT_OMP", REGISTRATION_PRESETS["hdl"], False, "front_ndt_omp"),
              ("FAST_VGICP", dataclasses.replace(REGISTRATION_PRESETS["hdl"],
-                                                method="FAST_VGICP"), True))
-    for name, reg, hold_drift in heads:
+                                                method="FAST_VGICP"), True,
+              "front_fast_vgicp"))
+    misses = []
+    for name, reg, hold_drift, ref_name in heads:
         nn_kernel.launches = 0
         odo, pipe, wall = odometry_drive(frames, reg)
         launches += nn_kernel.launches
@@ -1999,6 +2114,7 @@ def run_heads(report, frames, lap):
         check(same, f"{name}: two runs of the same frames differ")
         if hold_drift:
             check(drift <= 0.05 * path, f"{name}: drift {drift:.3f} m > 5% of {path:.3f} m")
+        misses += held_to_reference(ref_name, front_arrays(odo), reference, report)
 
     # hdl_400 with the nodelet's NDT_OMP backend registration over the lap
     cfg = get_preset("hdl_400")
@@ -2034,6 +2150,8 @@ def run_heads(report, frames, lap):
     report["heads"] = rows
     check(len(aligned) >= 1, "no loop candidate was aligned through NDT")
     check(all(np.isfinite(c["chi2"]) for c in cycles), "hdl NDT lap: chi2 not finite")
+    misses += held_to_reference("lap_ndt_loops", pipe, reference, report)
+    check(not misses, f"the registration heads against the reference: {misses}")
     return launches
 
 
@@ -2289,9 +2407,10 @@ def cli_drive(report, world, frames, bins, work, device="cuda"):
     return launches
 
 
-def checkpoint_drive(report, world, frames, gts, work, device="cuda"):
+def checkpoint_drive(report, world, frames, gts, work, reference, device="cuda"):
     """Phase 8's drive cut at RESUME_AT: save_state, a fresh Pipeline on the
-    card, load_state, the remaining frames with a 10 Hz Map2OdomPublisher."""
+    card, load_state, the remaining frames with a 10 Hz Map2OdomPublisher;
+    both halves held to the reference's drive of the same calls."""
     import torch
 
     from delta_graph_slam_tpu_torch.buildings import StaticProvider
@@ -2305,6 +2424,7 @@ def checkpoint_drive(report, world, frames, gts, work, device="cuda"):
     cfg = get_preset("delta")
     launches = nn_kernel.launches
     pipe = Pipeline(cfg, building_provider=StaticProvider(world.osm_xml()), device=device)
+    trace_drive(pipe)
     drive(pipe, frames[:RESUME_AT], gts[:RESUME_AT])
     pipe.finish()
     path = work / "state.npz"
@@ -2329,6 +2449,7 @@ def checkpoint_drive(report, world, frames, gts, work, device="cuda"):
     check(len(b2.keyframes) == len(b1.keyframes) and gap <= 1e-6,
           f"the loaded state differs: {len(b2.keyframes)} keyframes, pose gap {gap}")
 
+    trace_resumed(resumed, pipe.drive_trace)
     table = TransformTable()
     pub = Map2OdomPublisher(table, b2, rate_hz=10.0).start()
     try:
@@ -2343,17 +2464,20 @@ def checkpoint_drive(report, world, frames, gts, work, device="cuda"):
           "map->odom differs from the lifted trans_odom2map")
     m = resumed.evaluate()
     ate = report["buildings"]["metrics"]["ATE_mean"]
+    misses = held_to_reference("city_resumed", resumed, reference, report)
+    ate_ref = float(reference["city_resumed"]["metrics"][0])
     print(f"resumed drive: {len(b2.keyframes)} keyframes, ATE {m['ATE_mean']:.4f} m against "
           f"the uninterrupted drive's {ate:.4f} m (phase 8; difference "
-          f"{m['ATE_mean'] - ate:+.4f} m: the RANSAC key chains restart and the "
-          f"restored building manager downloads no new buildings, as in the reference); "
-          f"map->odom equal to the lifted trans_odom2map", flush=True)
+          f"{m['ATE_mean'] - ate:+.4f} m); the reference's resumed drive {ate_ref:.6f} m "
+          f"(gap {m['ATE_mean'] - ate_ref:+.6f} m, limit {REF_ATE_M}); map->odom equal "
+          f"to the lifted trans_odom2map", flush=True)
     report["checkpoint"] = {"resume_at": RESUME_AT, "save_ms": save_ms, "load_ms": load_ms,
                             "state_mb": size_mb, "pose_gap_m": gap,
                             "keyframes_saved": len(b1.keyframes),
                             "keyframes_final": len(b2.keyframes), "metrics": m,
                             "uninterrupted_ate_m": ate}
     check(m["ATE_mean"] <= 1.0, f"resumed ATE {m['ATE_mean']} m > 1.0 m")
+    check(not misses, f"the resumed drive against the reference: {misses}")
     return nn_kernel.launches - launches
 
 
@@ -2396,7 +2520,7 @@ def boundary_queries(pts, mask, centre, r2, block=1024, device="cuda"):
     return (out & m).cpu().numpy()
 
 
-def dense_check(report, frames, device="cuda"):
+def dense_check(report, frames, reference, device="cuda"):
     """radius_moments on the card against the port's plain CPU run at the
     front end's shape, then phase 4's frames with the 'dense' methods."""
     import torch
@@ -2496,10 +2620,13 @@ def dense_check(report, frames, device="cuda"):
     check(converged >= 0.9, f"dense front end: only {converged:.3f} of frames converged")
     check(drift <= 0.05 * path, f"dense front end: drift {drift:.3f} m > 5% of {path:.3f} m")
     check(same, "the dense front end's odometry differs between two runs")
+    misses = held_to_reference("front_dense", front_arrays(odo), reference, report)
+    check(not misses, f"the dense front end against the reference: {misses}")
     return nn_kernel.launches - launches
 
 
-def run_host_runtime(report, slice_frames, world, city, city_gts, device="cuda"):
+def run_host_runtime(report, slice_frames, world, city, city_gts, reference,
+                     device="cuda"):
     """Phase 13: libpcio, the command line on a recorded drive, a checkpoint
     in the middle of the building drive, and the 'dense' methods."""
     import tempfile
@@ -2508,8 +2635,9 @@ def run_host_runtime(report, slice_frames, world, city, city_gts, device="cuda")
         work = Path(d)
         bins = pcio_check(report, slice_frames, work)
         launches = cli_drive(report, world, city, bins[:KITTI_FILES], work, device)
-        launches += checkpoint_drive(report, world, city, city_gts, work, device)
-    launches += dense_check(report, slice_frames, device)
+        launches += checkpoint_drive(report, world, city, city_gts, work, reference,
+                                     device)
+    launches += dense_check(report, slice_frames, reference, device)
     return launches
 
 
@@ -2854,10 +2982,10 @@ def batched_nn1(report, clouds, device="cuda"):
     return err
 
 
-def run_multibag(report, clouds, device="cuda"):
+def run_multibag(report, clouds, reference, device="cuda"):
     """Phase 14's registration half: B = 1 and B = 8 lockstep drives with
-    voxel then brute correspondences. Returns the nn1 launches of the
-    brute drives."""
+    voxel then brute correspondences, the voxel B = 8 drive held to the
+    reference's. Returns the nn1 launches of the brute drives."""
     from delta_graph_slam_tpu_torch.config import get_preset
     from delta_graph_slam_tpu_torch.ops import nn_kernel
 
@@ -2904,10 +3032,14 @@ def run_multibag(report, clouds, device="cuda"):
               f"{gap_t} m, {gap_r} rotation")
         if method == "brute" and device != "cpu":
             check(n > 0, "the brute MultiBagOdometry drive launched no nn1 kernel")
+        if method == "voxel":
+            misses = held_to_reference("multibag_voxel", {"odom": odo8, "iters": its8},
+                                       reference, report)
+            check(not misses, f"MultiBagOdometry voxel against the reference: {misses}")
     return launches
 
 
-def run_parallel(report, slice_frames, device="cuda"):
+def run_parallel(report, slice_frames, reference, device="cuda"):
     """Phase 14: the segmented SE2 solve in its three layouts at two sizes,
     then batched registration and the batched nn1 launch."""
     t = time.perf_counter()
@@ -2915,7 +3047,7 @@ def run_parallel(report, slice_frames, device="cuda"):
         spike_layouts(report, n, device)
     print(f"graph layouts in {time.perf_counter() - t:.1f} s", flush=True)
     clouds = prefiltered(slice_frames, device)
-    launches = run_multibag(report, clouds, device)
+    launches = run_multibag(report, clouds, reference, device)
     if device != "cpu":
         batched_nn1(report, clouds, device)
     return launches
@@ -2969,7 +3101,7 @@ def main():
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
     t = phase("slice: 40 frames, delta preset, full capacity")
-    launches, slice_frames = run_slice(report)
+    launches, slice_frames = run_slice(report, reference)
     voxel_sums(report)
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
@@ -3011,7 +3143,7 @@ def main():
 
     t = phase(f"registration heads: NDT_OMP and FAST_VGICP odometry on {N_FRAMES} frames, "
               f"the NDT backend registration on the {LAP_FRAMES}-frame lap")
-    launches += run_heads(report, slice_frames, lap)
+    launches += run_heads(report, slice_frames, lap, reference)
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
     t = phase(f"threaded runner: the building drive and the hdl_400 drive, "
@@ -3021,12 +3153,12 @@ def main():
 
     t = phase(f"host runtime: libpcio, the command line on {CLI_FRAMES} recorded frames, "
               f"a checkpoint after {RESUME_AT} frames, the 'dense' methods")
-    launches += run_host_runtime(report, slice_frames, world, city, city_gts)
+    launches += run_host_runtime(report, slice_frames, world, city, city_gts, reference)
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
     t = phase(f"parallel: SE2 layouts at {GRAPH_NODES} and {SPIKE_WARM_NODES} nodes, "
               f"MultiBagOdometry B=1 and B={MB_BAGS}, the batched nn1 launch")
-    launches += run_parallel(report, slice_frames)
+    launches += run_parallel(report, slice_frames, reference)
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
     if args.out:
