@@ -68,7 +68,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      state, chi2 and iteration count) and held against a float64 robust LM
      on the host (scipy SuperLU): the card's chi2 must not exceed 1.02 x
      the host's; one chain_hub_solve step against a float64 dense solve of
-     the same system; ms and kernel launches per LM iteration;
+     the same system; ms and kernel launches per LM iteration; then the
+     same graph for SE3_CAPTURE_ITERS iterations (early exits off) with
+     every LM iteration eager and with the iteration captured once as a
+     CUDA graph and replayed: bitwise-equal state, chi2 and lambda; ms and
+     kernels an iteration both ways;
  10. hdl drive: Pipeline(get_preset('hdl_400')) over phase 8's frames (GPS
      fed, which hdl_400 leaves off), twice: floor coefficients on >= 90 %
      of frames, the floor-plane vertex, >= 1 se3plane edge a keyframe, se3
@@ -173,6 +177,7 @@ LAP_FRAMES = 120
 CITY_WARMUP = 10
 CITY_FRAMES = 240
 SE3_LM_ITERS = 128        # bench.py:1028
+SE3_CAPTURE_ITERS = 5     # eager against replayed LM iterations (phase 9)
 IMU_FRAMES = 60
 DESKEW_RATE = [0.0, 0.0, 0.5]   # rad/s about z: a car in a gentle turn
 SPIKE_WARM_NODES = 16384        # bench_multichip.py:123
@@ -1873,6 +1878,62 @@ def se3_graph_solve(report, n_nodes=GRAPH_NODES, device="cuda"):
           f"card SE3 chi2 {chi2[0]} above 1.02 x the host's {chi2_h}")
 
 
+def se3_lm_capture(report, n_nodes=GRAPH_NODES, device="cuda"):
+    """Phase 9's graph solved for SE3_CAPTURE_ITERS LM iterations (early
+    exits off) twice from the same state: every iteration eager, and the
+    iteration captured once as a CUDA graph and replayed (optimize_se3's
+    default). The states, chi2 and lambda must be equal bit for bit. ms an
+    iteration by the marginal protocol (solves capped at 2 and 12
+    iterations, best of 3) and CUDA kernels an iteration, both ways."""
+    import torch
+
+    from delta_graph_slam_tpu_torch.graph import SolverConfig, optimize_se3
+
+    b = se3_graph_builder(bench_graph_se3(n_nodes), device)
+    g = b.to_arrays(dtype=np.float32)
+    n_off = b.count_offchain()
+    cfg = SolverConfig(backend="chain", max_iterations=SE3_CAPTURE_ITERS,
+                       chi2_rel_tol=0.0, dx_tol=0.0)
+    out = {}
+    for name, cuda_graph in (("eager", False), ("graph", True)):
+        def solve(c, cuda_graph=cuda_graph):
+            res = optimize_se3(g, level=0, config=c, n_offchain=n_off,
+                               cuda_graph=cuda_graph)
+            torch.cuda.synchronize()
+            return res
+
+        state, st = solve(cfg)
+        best = {}
+        for cap in (2, 12):
+            c = dataclasses.replace(cfg, max_iterations=cap)
+            for _ in range(3):
+                t0 = time.perf_counter()
+                solve(c)
+                best[cap] = min(best.get(cap, float("inf")), time.perf_counter() - t0)
+        out[name] = dict(state=state, stats=st, ms=(best[12] - best[2]) * 100.0,
+                         ms_2=best[2] * 1000.0,
+                         kernels=lm_launches_per_iteration(solve, cfg))
+    e, r = out["eager"], out["graph"]
+    same = (all(bool(torch.equal(a, c)) for a, c in zip(e["state"], r["state"]))
+            and bool(torch.equal(e["stats"].chi2_final, r["stats"].chi2_final))
+            and bool(torch.equal(e["stats"].lambda_final, r["stats"].lambda_final))
+            and e["stats"].iterations == r["stats"].iterations == SE3_CAPTURE_ITERS)
+    print(f"SE3 LM at {n_nodes} nodes, {SE3_CAPTURE_ITERS} iterations eager / "
+          f"replayed: chi2 {float(e['stats'].chi2_final)!r} / "
+          f"{float(r['stats'].chi2_final)!r}, lambda {float(e['stats'].lambda_final)!r}"
+          f" / {float(r['stats'].lambda_final)!r}, bitwise equal state, chi2 and "
+          f"lambda {same}; {e['ms']:.3f} / {r['ms']:.3f} ms an iteration, a solve of "
+          f"2 iterations {e['ms_2']:.1f} / {r['ms_2']:.1f} ms (the replayed one "
+          f"captures), CUDA kernels an iteration {e['kernels']} / {r['kernels']}",
+          flush=True)
+    report["se3_capture"] = {
+        "nodes": n_nodes, "iterations": SE3_CAPTURE_ITERS, "bitwise_equal": same,
+        **{f"{k}_{name}": v[k] for name, v in out.items() for k in ("ms", "ms_2", "kernels")},
+    }
+    check(same, "the replayed SE3 LM iterations differ from the eager ones")
+    check(r["kernels"] is not None, "the profiler saw no kernel of the replayed iterations")
+
+
 # ---------------------------------------------------------------- hdl drive
 
 def hdl_drive(cfg, frames, gts, warmup, imu=False, device="cuda", threaded=False,
@@ -3150,6 +3211,7 @@ def main():
 
     t = phase(f"SE3 graph solve: {GRAPH_NODES}-node hdl graph, chain + hub backend")
     se3_graph_solve(report)
+    se3_lm_capture(report)
     print(f"phase done in {time.perf_counter() - t:.1f} s", flush=True)
 
     t = phase(f"hdl drive: {CITY_FRAMES}-frame raycast city drive, hdl_400, then "

@@ -8,11 +8,16 @@ by the direct chain solve (graph/chain_solve.py).
 
 LM schedule of g2o's OptimizationAlgorithmLevenberg: initial lambda =
 tau * max diag(H); accept/reject by chi2 with gain-ratio lambda updates.
-The loop runs on the host. Each iteration reads one pair of flags from
-the device (step accepted, keep going); chi2 and the other statistics stay
-on the device until the solve returns. The linear algebra uses the ``_ex``
-forms (no error check), which would otherwise read a status from the
-device on every call.
+The loop runs on the host. An iteration is one branch-free step
+(``_lm_step``): the accepted step or the old iterate is picked on the
+device, and the host reads one flag (keep going); chi2 and the other
+statistics stay on the device until the solve returns. The linear algebra
+uses the ``_ex`` forms (no error check), which would otherwise read a
+status from the device on every call.
+
+On a card, ``cuda_graph=True`` records the step once as a CUDA graph after
+a first eager iteration and replays it from then on: an SE3 iteration is
+thousands of tiny float64 launches, and one graph launch replaces them.
 
 Every float scatter-add goes through ``segment_sum`` (ops/segment.py) and
 the solve runs under ``deterministic()``, so a solve on the card gives the
@@ -20,6 +25,7 @@ same bits every run.
 """
 
 import dataclasses
+import threading
 from typing import NamedTuple
 
 import torch
@@ -248,8 +254,116 @@ def _all_finite(state):
     return torch.stack([torch.isfinite(s).all() for s in state]).all()
 
 
+def _pick(accept, new, old):
+    """``new`` where the step was accepted, else ``old``: a tensor or a
+    tuple of tensors."""
+    if isinstance(old, torch.Tensor):
+        return torch.where(accept, new, old)
+    return tuple(torch.where(accept, a, b) for a, b in zip(new, old))
+
+
+def _linear_solver(cfg: SolverConfig, free, N, n_chain):
+    """(sys, b, lam) -> dx, the solve of (H + lam I) dx = -b by the
+    configured backend."""
+    if cfg.backend == "dense":
+        return lambda sys, b, lam: dense_solve(sys, -b, free, lam)
+    if cfg.backend == "chain" and cfg.chain_hubs > 0:
+        from .hub_solve import chain_hub_solve
+
+        return lambda sys, b, lam: chain_hub_solve(
+            sys, -b, free, lam, N, n_hub=cfg.chain_hubs,
+            K_cap=cfg.chain_offrank_capacity,
+            coup_cap=cfg.chain_coupling_capacity)[0]
+    if cfg.backend == "chain":
+        from .chain_solve import chain_solve
+
+        return lambda sys, b, lam: chain_solve(
+            sys, -b, free, lam, N, K_cap=cfg.chain_offrank_capacity,
+            base_blocks=cfg.chain_base_blocks, refine_steps=cfg.chain_refine_steps,
+            precision=cfg.chain_precision, n_chain=n_chain)[0]
+
+    def cg(sys, b, lam):
+        Minv = block_jacobi_inverse(diag_blocks(sys, N), free, lam)
+        return cg_solve(sys, -b, free, lam, Minv, cfg.cg_max_iters, cfg.cg_rtol)
+    return cg
+
+
+def _lm_step(carry, linearize_fn, apply_fn, solve, cfg: SolverConfig, N, n_chain):
+    """One LM iteration without a host read: carry = (state, sys, chi2,
+    lam, nu) -> (the next carry, a 0-d bool: keep going)."""
+    state, sys, chi2, lam, nu = carry
+    dtype = lam.dtype
+    b = gradient(sys, N, n_chain=n_chain)
+    dx = solve(sys, b, lam)
+    trial = apply_fn(state, dx)
+    sys_t, chi2_t = linearize_fn(trial)
+    denom = (dx * (lam * dx - b)).sum()
+    rho = (chi2 - chi2_t) / torch.where(torch.abs(denom) < 1e-30,
+                                        torch.full_like(denom, 1e-30), denom)
+    accept = (chi2_t < chi2) & _all_finite(trial)
+    chi2_n = torch.where(accept, chi2_t, chi2)
+    lam_dec = lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+    lam_n = torch.where(accept, lam_dec, lam * nu).to(dtype)
+    nu_n = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
+    # stop on an accepted step with negligible gain, or on a step so
+    # small no progress is possible: the dx test applies to rejected
+    # steps too, or the tail walks lambda up to 1e12
+    converged = (accept & ((chi2 - chi2_n) <= cfg.chi2_rel_tol
+                           * torch.clamp(chi2, min=1e-30))) \
+        | ((dx * dx).sum() < cfg.dx_tol)
+    sys_n = LinSys(sys.i, sys.j, *(torch.where(accept, a, o)
+                                   for a, o in zip(sys_t[2:], sys[2:])))
+    carry = (_pick(accept, trial, state), sys_n, chi2_n, lam_n, nu_n)
+    return carry, ~converged & (lam_n < 1e12)
+
+
+def _carry_tensors(carry):
+    """The tensors an iteration rewrites (the edge indices never change)."""
+    state, sys, chi2, lam, nu = carry
+    states = [state] if isinstance(state, torch.Tensor) else list(state)
+    return states + list(sys[2:]) + [chi2, lam, nu]
+
+
+# per thread and card: the stream captures run on, and the last graph
+# captured there. Each capture allocates from the last one's memory pool,
+# which that graph's life keeps open (an unused pool cannot be entered
+# again), so the memory of one capture is reused by the next
+_CAPTURE = threading.local()
+
+
+def _capture_step(step, carry):
+    """Record ``step`` as a CUDA graph that reads the carry's tensors and
+    writes the next carry back into them; returns (graph, its keep-going
+    flag). Replay it on the current stream.
+
+    The capture runs on a stream of its own (a capture cannot use the
+    default stream) that carries no other work, with thread-local error
+    checks so that the runner's other threads go on launching on the
+    default stream meanwhile. No synchronize and no empty_cache here (which
+    torch.cuda.graph would add): the optimizer thread may not wait on the
+    front end's queue."""
+    device = carry[2].device
+    per_card = _CAPTURE.__dict__.setdefault("per_card", {})
+    if device.index not in per_card:
+        with torch.cuda.device(device):
+            per_card[device.index] = (torch.cuda.Stream(), None)
+    stream, last = per_card[device.index]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=None if last is None else last.pool(),
+                            capture_error_mode="thread_local")
+        try:
+            nxt, go = step(carry)
+            for dst, src in zip(_carry_tensors(carry), _carry_tensors(nxt)):
+                dst.copy_(src)
+        finally:
+            graph.capture_end()
+    per_card[device.index] = (stream, graph)
+    return graph, go
+
+
 def lm_optimize(linearize_fn, chi2_fn, apply_fn, state0, free, cfg: SolverConfig,
-                n_edges_total=None):
+                n_edges_total=None, cuda_graph=False):
     """Generic robust LM loop.
 
     linearize_fn(state) -> (LinSys, chi2); chi2_fn(state) -> (chi2, n_active);
@@ -259,6 +373,11 @@ def lm_optimize(linearize_fn, chi2_fn, apply_fn, state0, free, cfg: SolverConfig
     checks the WHOLE graph's edge count before the level-masked
     initializeOptimization (graph_slam.cpp:338-346), so pass the unmasked
     count; None falls back to the level-active count.
+
+    cuda_graph: on a card, run the first iteration eagerly, then capture
+    the iteration once and replay it (the same launches on the same
+    buffers, so the same bits); the functions must then read nothing back
+    from the device. Ignored on the CPU.
     """
     N = free.shape[0]
     dtype = free.dtype
@@ -271,56 +390,26 @@ def lm_optimize(linearize_fn, chi2_fn, apply_fn, state0, free, cfg: SolverConfig
     lam = (cfg.lm_tau * torch.clamp(maxdiag, min=1e-12)).to(dtype)
     nu = torch.tensor(2.0, dtype=dtype, device=free.device)
     n_chain = cfg.chain_layout if cfg.backend == "chain" else 0
-    state, sys, chi2 = state0, sys0, chi2_0
+    solve = _linear_solver(cfg, free, N, n_chain)
 
+    def step(c):
+        return _lm_step(c, linearize_fn, apply_fn, solve, cfg, N, n_chain)
+
+    carry = (state0, sys0, chi2_0, lam, nu)
     skipped, lam_ok = torch.stack([skip, lam < 1e12]).tolist()
     go = not skipped and lam_ok
+    graph = None
     it = 0
     while go and it < cfg.max_iterations:
-        b = gradient(sys, N, n_chain=n_chain)
-        if cfg.backend == "dense":
-            dx = dense_solve(sys, -b, free, lam)
-        elif cfg.backend == "chain" and cfg.chain_hubs > 0:
-            from .hub_solve import chain_hub_solve
-
-            dx, _ = chain_hub_solve(
-                sys, -b, free, lam, N, n_hub=cfg.chain_hubs,
-                K_cap=cfg.chain_offrank_capacity,
-                coup_cap=cfg.chain_coupling_capacity,
-            )
-        elif cfg.backend == "chain":
-            from .chain_solve import chain_solve
-
-            dx, _ = chain_solve(
-                sys, -b, free, lam, N, K_cap=cfg.chain_offrank_capacity,
-                base_blocks=cfg.chain_base_blocks,
-                refine_steps=cfg.chain_refine_steps,
-                precision=cfg.chain_precision, n_chain=n_chain,
-            )
+        if graph is None and it > 0 and cuda_graph and free.is_cuda:
+            graph, go_t = _capture_step(step, carry)
+        if graph is not None:
+            graph.replay()
         else:
-            Minv = block_jacobi_inverse(diag_blocks(sys, N), free, lam)
-            dx = cg_solve(sys, -b, free, lam, Minv, cfg.cg_max_iters, cfg.cg_rtol)
-        trial = apply_fn(state, dx)
-        sys_t, chi2_t = linearize_fn(trial)
-        denom = (dx * (lam * dx - b)).sum()
-        rho = (chi2 - chi2_t) / torch.where(torch.abs(denom) < 1e-30,
-                                            torch.full_like(denom, 1e-30), denom)
-        accept = (chi2_t < chi2) & _all_finite(trial)
-        chi2_n = torch.where(accept, chi2_t, chi2)
-        lam_dec = lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-        lam = torch.where(accept, lam_dec, lam * nu).to(dtype)
-        nu = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
-        # stop on an accepted step with negligible gain, or on a step so
-        # small no progress is possible: the dx test applies to rejected
-        # steps too, or the tail walks lambda up to 1e12
-        converged = (accept & ((chi2 - chi2_n) <= cfg.chi2_rel_tol
-                               * torch.clamp(chi2, min=1e-30))) \
-            | ((dx * dx).sum() < cfg.dx_tol)
-        chi2 = chi2_n
+            carry, go_t = step(carry)
         it += 1
-        took, go = torch.stack([accept, ~converged & (lam < 1e12)]).tolist()
-        if took:
-            state, sys = trial, sys_t
+        go = bool(go_t)
+    state, _, chi2, lam, _ = carry
 
     if cfg.backend == "chain" and cfg.chain_hubs > 0:
         from .hub_solve import hub_overflow

@@ -9,9 +9,16 @@ functions at zero, written in closed form (``_j_*``). The JAX package takes
 them by forward-mode autodiff of the same functions; on the card that route
 (``torch.func`` or ``torch.autograd.forward_ad``) costs thousands of small
 launches an LM iteration, all paid on the host, so the port keeps the
-delta-parameterized functions ``_f_*`` as the definition, evaluates the
-residuals through them, and the tests hold every closed form against the
-forward-mode derivative of its ``_f_*`` and against the JAX Jacobians.
+delta-parameterized functions ``_f_*`` as the definition and the tests hold
+every closed form against the forward-mode derivative of its ``_f_*`` and
+against the JAX Jacobians.
+
+The residuals are the plain error functions at the state itself, not the
+``_f_*`` at zero delta: ``pose7_oplus(p, 0)`` is a quaternion -> matrix ->
+exp -> quaternion round trip on every endpoint of every edge. What that
+round trip does to the state (unit quaternions with w >= 0, unit plane
+normals) ``_canonical`` does once a state, and the error functions at the
+canonical state are the ``_f_*`` at zero delta to rounding.
 
 Precision. The solver state, the residuals and the Jacobians are float64,
 whatever the dtype of the graph's tables: at city scale (|t| ~ 300 m) a
@@ -32,7 +39,7 @@ import functools
 import torch
 
 from ..geom.se3 import _skew, quat_to_rot, rot_to_quat
-from ..ops.segment import deterministic
+from ..ops.segment import deterministic, unfilled_empty
 from .lm_core import SolverConfig, concat_sys, lm_optimize, pad_block
 from .robust import robust_rho, robust_weight
 from .se3_graph import (
@@ -76,9 +83,8 @@ def _f_se3_point(da, db, pi, pt, meas):
     return error_se3_point(pose7_oplus(pi, da), pt + db, meas)
 
 
-def _f_pp(da, db, p1, p2, meas, kind):
-    a = plane_oplus(p1, da)
-    b = plane_oplus(p2, db)
+def _e_pp(a, b, meas, kind):
+    """The plane-plane error of each row's kind, padded to 4 dims."""
     e_id = error_plane_identity(a, b, meas)
     z = torch.zeros_like(e_id)
     e_par = torch.cat([error_plane_parallel(a, b, meas[..., :3]), z[..., :1]], -1)
@@ -87,12 +93,20 @@ def _f_pp(da, db, p1, p2, meas, kind):
     return torch.where(k == 0, e_id, torch.where(k == 1, e_par, e_perp))
 
 
-def _f_pprior(da, p, meas, kind):
-    a = plane_oplus(p, da)
+def _f_pp(da, db, p1, p2, meas, kind):
+    return _e_pp(plane_oplus(p1, da), plane_oplus(p2, db), meas, kind)
+
+
+def _e_pprior(a, meas, kind):
+    """The plane prior of each row's kind, padded to 3 dims."""
     e_n = error_plane_prior_normal(a, meas)
     e_d = torch.cat([error_plane_prior_distance(a, meas[..., 0]),
                      torch.zeros_like(e_n[..., :2])], -1)
     return torch.where(kind[..., None] == 0, e_n, e_d)
+
+
+def _f_pprior(da, p, meas, kind):
+    return _e_pprior(plane_oplus(p, da), meas, kind)
 
 
 _PRIORS = {
@@ -140,12 +154,17 @@ def _sign(a, b):
     return (1.0 - 2.0 * ((a * b).sum(-1) < 0.0).to(a.dtype))[..., None, None]
 
 
-def _plane_tangent(pl):
-    """(the plane as plane_oplus(pl, 0) returns it: unit normal, w kept;
-    the (E,3,2) basis b1, b2 of the normal's update)."""
+def _canon_plane(pl):
+    """The plane as plane_oplus(pl, 0) returns it: unit normal, w kept."""
     n = pl[..., :3] / torch.clamp(
         torch.linalg.vector_norm(pl[..., :3], dim=-1, keepdim=True), min=1e-12)
-    return torch.cat([n, pl[..., 3:]], dim=-1), plane_rotation(n)[..., :, 1:3]
+    return torch.cat([n, pl[..., 3:]], dim=-1)
+
+
+def _plane_tangent(pl):
+    """(_canon_plane(pl); the (E,3,2) basis b1, b2 of the normal's update)."""
+    pl = _canon_plane(pl)
+    return pl, plane_rotation(pl[..., :3])[..., :, 1:3]
 
 
 def _azel_grad(n):
@@ -258,49 +277,74 @@ def _j_pprior(p, meas, kind):
                        torch.cat([P3[..., 3:, :], z, z], dim=-2))
 
 
+def _canonical(state):
+    """The state as pose7_oplus(., 0) and plane_oplus(., 0) return it: unit
+    quaternions with w >= 0, unit plane normals with w kept, points as they
+    are. The quaternion prior and the plane errors read the raw
+    coefficients, so the residuals need it. It is taken once, of the first
+    state: _apply_update's output is canonical by construction (pose7_oplus
+    ends in rot_to_quat, plane_oplus in plane_normalize)."""
+    poses, planes, points = state
+    return (torch.cat([poses[:, :3], _canon_quat(poses)], dim=-1),
+            _canon_plane(planes), points)
+
+
 def _families(graph: SE3Graph, state, with_jac, live=None):
     """Yield (gi, gj, r, Ji, Jj, info, mask, level, kernel, delta, rdim) with
     global vertex indices over the unified [poses | planes | points] space,
     one family a table of the graph, in the tables' order.
 
-    state = (poses (V,7), planes (P,4), points (Q,3)), float64. ``live``
-    (one flag a table) leaves out the families whose tables hold no edge:
-    their rows would all carry W = 0, and each costs a pass of launches."""
+    state = (poses (V,7), planes (P,4), points (Q,3)), float64 and
+    canonical (``_canonical``): r is each error function at the state
+    itself. ``live`` (one flag a table) leaves out the families whose
+    tables hold no edge: their rows would all carry W = 0, and each costs a
+    pass of launches."""
     poses, planes, points = state
     V = poses.shape[0]
     P = planes.shape[0]
     g = graph
 
-    def z(t, d):
-        return poses.new_zeros((t.mask.shape[0], d))
-
     def prior(name):
         err_fn, dim = _PRIORS[name]
-        return (getattr(g, f"priors_{name}"), dim, lambda t: (
-            t.i, t.i, _f_prior(err_fn, z(t, 6), poses[t.i], t.meas),
-            lambda: (_j_prior(name, poses[t.i], t.meas), None)))
+
+        def place(t):
+            pi = poses[t.i]
+            return (t.i, t.i, err_fn(pi, t.meas),
+                    lambda: (_j_prior(name, pi, t.meas), None))
+        return getattr(g, f"priors_{name}"), dim, place
+
+    def se3(t):
+        pi, pj = poses[t.i], poses[t.j]
+        return t.i, t.j, error_se3(pi, pj, t.meas), lambda: _j_se3(pi, pj, t.meas)
+
+    def se3_plane(t):
+        pi, pl = poses[t.i], planes[t.p]
+        return (t.i, V + t.p, error_se3_plane(pi, pl, t.meas),
+                lambda: _j_se3_plane(pi, pl, t.meas))
+
+    def se3_point(t):
+        pi, pt = poses[t.i], points[t.q]
+        return (t.i, V + P + t.q, error_se3_point(pi, pt, t.meas),
+                lambda: _j_se3_point(pi, pt, t.meas))
+
+    def plane_plane(t):
+        a, b = planes[t.a], planes[t.b]
+        return (V + t.a, V + t.b, _e_pp(a, b, t.meas, t.kind),
+                lambda: _j_pp(a, b, t.meas, t.kind))
+
+    def plane_prior(t):
+        a = planes[t.p]
+        return (V + t.p, V + t.p, _e_pprior(a, t.meas, t.kind),
+                lambda: (_j_pprior(a, t.meas, t.kind), None))
 
     # (table, residual dim, table -> (gi, gj, residual, Jacobian thunk))
     specs = (
-        (g.edges, 6, lambda t: (
-            t.i, t.j, _f_se3(z(t, 6), z(t, 6), poses[t.i], poses[t.j], t.meas),
-            lambda: _j_se3(poses[t.i], poses[t.j], t.meas))),
+        (g.edges, 6, se3),
         prior("xy"), prior("xyz"), prior("vec"), prior("quat"),
-        (g.se3_plane, 3, lambda t: (
-            t.i, V + t.p,
-            _f_se3_plane(z(t, 6), z(t, 3), poses[t.i], planes[t.p], t.meas),
-            lambda: _j_se3_plane(poses[t.i], planes[t.p], t.meas))),
-        (g.se3_point, 3, lambda t: (
-            t.i, V + P + t.q,
-            _f_se3_point(z(t, 6), z(t, 3), poses[t.i], points[t.q], t.meas),
-            lambda: _j_se3_point(poses[t.i], points[t.q], t.meas))),
-        (g.plane_plane, 4, lambda t: (
-            V + t.a, V + t.b,
-            _f_pp(z(t, 3), z(t, 3), planes[t.a], planes[t.b], t.meas, t.kind),
-            lambda: _j_pp(planes[t.a], planes[t.b], t.meas, t.kind))),
-        (g.plane_priors, 3, lambda t: (
-            V + t.p, V + t.p, _f_pprior(z(t, 3), planes[t.p], t.meas, t.kind),
-            lambda: (_j_pprior(planes[t.p], t.meas, t.kind), None))),
+        (g.se3_plane, 3, se3_plane),
+        (g.se3_point, 3, se3_point),
+        (g.plane_plane, 4, plane_plane),
+        (g.plane_priors, 3, plane_prior),
     )
     for k, (t, dim, place) in enumerate(specs):
         if live is not None and not live[k]:
@@ -347,7 +391,7 @@ def _linearize(graph, state, level, live=None):
 
 
 def _state0(graph: SE3Graph):
-    return (graph.poses, graph.planes, graph.points)
+    return _canonical((graph.poses, graph.planes, graph.points))
 
 
 def _tables(graph: SE3Graph):
@@ -392,7 +436,7 @@ def _to_f64(graph: SE3Graph) -> SE3Graph:
                      delta=t.delta.to(f64)) for t in _tables(graph)))
 
 
-def _optimize(graph: SE3Graph, level, cfg: SolverConfig):
+def _optimize(graph: SE3Graph, level, cfg: SolverConfig, cuda_graph):
     graph = _to_f64(graph)
     V = graph.poses.shape[0]
     P = graph.planes.shape[0]
@@ -404,11 +448,12 @@ def _optimize(graph: SE3Graph, level, cfg: SolverConfig):
         lambda s: _linearize(graph, s, level, live),
         lambda s: _chi2(graph, s, level, live),
         functools.partial(_apply_update, V, P), _state0(graph),
-        _free_mask(graph, level), cfg, n_edges_total=n_total)
+        _free_mask(graph, level), cfg, n_edges_total=n_total, cuda_graph=cuda_graph)
 
 
 def optimize_se3(graph: SE3Graph, level=0, config: SolverConfig = None,
-                 offrank_floor: int = 0, n_offchain: int = None):
+                 offrank_floor: int = 0, n_offchain: int = None,
+                 cuda_graph: bool = True):
     """Optimize; returns ((poses, planes, points), SolverStats), the state in
     the graph's dtype.
 
@@ -420,6 +465,9 @@ def optimize_se3(graph: SE3Graph, level=0, config: SolverConfig = None,
     n_offchain: that count when the caller knows it on the host
     (``SE3GraphBuilder.count_offchain``); left None it is read from the
     graph's tables, which on the card is one host read.
+    cuda_graph: on a card, replay the LM iteration as one CUDA graph after a
+    first eager iteration (lm_core.lm_optimize); False runs every iteration
+    eagerly, with the same bits.
     """
     config = config or SolverConfig()
     if config.backend == "chain":
@@ -438,7 +486,7 @@ def optimize_se3(graph: SE3Graph, level=0, config: SolverConfig = None,
             config = dataclasses.replace(
                 config, chain_hubs=n_hub, chain_coupling_capacity=coup_cap,
                 chain_offrank_capacity=k)
-    with deterministic():
-        state, stats = _optimize(graph, int(level), config)
+    with deterministic(), unfilled_empty():
+        state, stats = _optimize(graph, int(level), config, cuda_graph)
     dt = graph.poses.dtype
     return tuple(s.to(dt) for s in state), stats

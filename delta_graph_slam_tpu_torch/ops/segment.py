@@ -46,6 +46,28 @@ def deterministic():
     return _DETERMINISTIC.hold()
 
 
+def _get_fill():
+    return torch.utils.deterministic.fill_uninitialized_memory
+
+
+def _put_fill(value):
+    torch.utils.deterministic.fill_uninitialized_memory = value
+
+
+_NO_FILL = ProcessSwitch(_get_fill, _put_fill, False)
+
+
+def unfilled_empty():
+    """Under deterministic(), torch fills every tensor it allocates without
+    initializing (``torch.empty``, ``resize_``, the outputs of most
+    non-elementwise ops) with NaN, so that a read of uninitialized memory
+    repeats: one fill launch per allocation, hundreds an SE3 LM iteration.
+    Code that writes every element it allocates needs none of them;
+    graph/se3_solver.py:optimize_se3 holds this around its solve. Process
+    state, like deterministic()."""
+    return _NO_FILL.hold()
+
+
 def segment_sum(vals, ids, n, *, sorted_ids=False):
     """out[v] = sum of vals[k] with ids[k] == v; (E, ...) -> (n, ...).
 

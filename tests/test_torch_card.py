@@ -15,7 +15,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402  (numpy-only graph builders at the repo root)
-from delta_graph_slam_tpu_torch.graph import SolverConfig, optimize_se2  # noqa: E402
+from delta_graph_slam_tpu_torch.graph import (  # noqa: E402
+    SolverConfig, optimize_se2, optimize_se3,
+)
 from delta_graph_slam_tpu_torch.graph.hub_solve import chain_hub_solve  # noqa: E402
 from delta_graph_slam_tpu_torch.graph.lm_core import LinSys  # noqa: E402
 from delta_graph_slam_tpu_torch.lines import (  # noqa: E402
@@ -112,6 +114,24 @@ def test_optimize_se2_on_card_matches_cpu(cuda_device):
     assert abs(chi2_g - chi2_c) <= 1e-9 * chi2_c, (chi2_g, chi2_c)
     if sg.iterations == sc.iterations:
         np.testing.assert_allclose(pg.cpu().numpy(), pc.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_se3_lm_replay_matches_eager_on_card(cuda_device):
+    """chip_smoke phase 9's comparison at 512 nodes: five LM iterations
+    (early exits off) with every iteration eager, and with the iteration
+    captured once as a CUDA graph and replayed; state, chi2 and lambda
+    equal bit for bit."""
+    b = chip_smoke.se3_graph_builder(chip_smoke.bench_graph_se3(512), cuda_device)
+    g = b.to_arrays(dtype=np.float32)
+    cfg = SolverConfig(backend="chain", max_iterations=5, chi2_rel_tol=0.0, dx_tol=0.0)
+    (se, st_e), (sr, st_r) = (
+        optimize_se3(g, config=cfg, n_offchain=b.count_offchain(), cuda_graph=flag)
+        for flag in (False, True))
+    assert st_e.iterations == st_r.iterations == 5
+    assert all(torch.equal(a, c) for a, c in zip(se, sr))
+    assert torch.equal(st_e.chi2_final, st_r.chi2_final)
+    assert torch.equal(st_e.lambda_final, st_r.lambda_final)
 
 
 def line_matcher_case():
